@@ -1,0 +1,19 @@
+"""Where the port runs: the card unless the caller asks for the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card. Raises when the
+    card is asked for and there is none: the CPU is used only when the
+    caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card unless it is given "
+            "device='cpu'")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

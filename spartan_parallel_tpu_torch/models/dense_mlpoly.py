@@ -1,0 +1,361 @@
+"""Dense multilinear polynomials + the Hyrax-style PCS.
+
+Reference: src/dense_mlpoly.rs (DensePolynomial:20, EqPolynomial:60,
+PolyCommitment:45, PolyEvalProof:428). The protocol schedule (transcript
+labels, L/R factoring, batched-opening RLC) is the JAX package's, byte for
+byte; the tensors are PyTorch:
+
+  * evaluation tables are (n, 16) int32 Montgomery limb tensors on the
+    caller's device (ops/fq.py, K1);
+  * the eq table is built by doubling (K1 mul and sub), and above 2^13
+    entries as the product of two half tables;
+  * Hyrax row commitments are one batched MSM (K2) of all sqrt(N) rows;
+  * the L*Z row contraction and evaluations are K1 dot reductions.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.edwards import RistrettoPoint, multiscalar_mul
+from ..core.field import Scalar
+from ..ops import fq
+from ..ops import limbs as lb
+from .commitments import commit_rows_device
+from .sigma import DotProductProofGens, DotProductProofLog
+
+_ZERO = Scalar.zero()
+_ONE = Scalar.one()
+
+
+def log2(n: int) -> int:
+    assert n > 0 and n & (n - 1) == 0, f"not a power of 2: {n}"
+    return n.bit_length() - 1
+
+
+def next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (n - 1).bit_length()
+
+
+# --------------------------------------------------------------------------
+# Host <-> device scalar codecs
+# --------------------------------------------------------------------------
+def scalars_to_mont(values, device) -> torch.Tensor:
+    """list of Scalar/int -> (n, 16) Montgomery tensor on `device`. Bulk
+    inputs are R-scaled on the device (one product by R^2); short ones
+    (per-round challenges) on the host."""
+    vals = values if isinstance(values, list) else list(values)
+    if len(vals) < 64:
+        return lb.to_device(fq.encode(vals), device)
+    return fq.encode_to_device(vals, device)
+
+
+def mont_to_scalars(a: torch.Tensor) -> list:
+    """(..., 16) Montgomery tensor -> flat list of Scalar."""
+    return [Scalar(v) for v in fq.decode(a.reshape(-1, 16))]
+
+
+def mont_to_scalar(a: torch.Tensor) -> Scalar:
+    return mont_to_scalars(a)[0]
+
+
+# --------------------------------------------------------------------------
+# Eq polynomial
+# --------------------------------------------------------------------------
+def _eq_doubling(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
+    """(2^ell, 16) eq table by doubling: the index's MSB is r[0]."""
+    tab = lb.to_device(fq.ONE_MONT, r_mont.device)[None]
+    for j in range(ell):
+        hi = fq.mul(tab, r_mont[j])
+        lo = fq.sub(tab, hi)
+        tab = torch.stack([lo, hi], dim=1).reshape(-1, 16)
+    return tab
+
+
+def eq_evals(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
+    """(ell, 16) Montgomery challenges -> (2^ell, 16) eq table
+    (dense_mlpoly.rs:76-91). Above 2^13 entries it is the product of the
+    tables of the high and the low half of the variables (hi-major)."""
+    if ell <= 13:
+        return _eq_doubling(r_mont, ell)
+    half = ell // 2
+    hi_tab = _eq_doubling(r_mont[:half], half)
+    lo_tab = _eq_doubling(r_mont[half:], ell - half)
+    return fq.mul(hi_tab[:, None], lo_tab[None]).reshape(-1, 16)
+
+
+class EqPolynomial:
+    """eq(r, x) over the boolean hypercube (dense_mlpoly.rs:60-131)."""
+
+    def __init__(self, r):
+        self.r = list(r)
+
+    def evaluate(self, rx) -> Scalar:
+        assert len(self.r) == len(rx)
+        prod = _ONE
+        for a, b in zip(self.r, rx):
+            prod = prod * (a * b + (_ONE - a) * (_ONE - b))
+        return prod
+
+    def evals_dev(self, device) -> torch.Tensor:
+        """(2^ell, 16) Montgomery table on `device`."""
+        if not self.r:
+            return lb.to_device(fq.ONE_MONT, device)[None]
+        return eq_evals(scalars_to_mont(self.r, device), len(self.r))
+
+    def evals(self, device) -> list:
+        """Host list of Scalar (small ell), built on `device`."""
+        return mont_to_scalars(self.evals_dev(device))
+
+    @staticmethod
+    def compute_factored_lens(ell: int):
+        return ell // 2, ell - ell // 2
+
+    def compute_factored_evals(self, device):
+        left, _ = EqPolynomial.compute_factored_lens(len(self.r))
+        return (
+            EqPolynomial(self.r[:left]).evals(device),
+            EqPolynomial(self.r[left:]).evals(device),
+        )
+
+
+# --------------------------------------------------------------------------
+# DensePolynomial
+# --------------------------------------------------------------------------
+class DensePolynomial:
+    """Evaluation-form multilinear polynomial on a device (reference:
+    dense_mlpoly.rs:20)."""
+
+    __slots__ = ("Zm", "num_vars")
+
+    def __init__(self, Zm: torch.Tensor):
+        n = Zm.shape[0]
+        pad = next_pow2(n) - n
+        if pad:
+            Zm = torch.cat([Zm, torch.zeros((pad, 16), dtype=torch.int32,
+                                            device=Zm.device)])
+        self.Zm = Zm
+        self.num_vars = log2(Zm.shape[0])
+
+    @staticmethod
+    def from_scalars(values, device) -> "DensePolynomial":
+        return DensePolynomial(scalars_to_mont(values, device))
+
+    def __len__(self) -> int:
+        return self.Zm.shape[0]
+
+    def get_num_vars(self) -> int:
+        return self.num_vars
+
+    def bound(self, L) -> torch.Tensor:
+        """L*Z vector-matrix product -> (R_size, 16) Montgomery
+        (dense_mlpoly.rs:258-265)."""
+        if isinstance(L, (list, tuple)):
+            L = scalars_to_mont(L, self.Zm.device)
+        ls = L.shape[0]
+        return fq.dot(self.Zm.reshape(ls, -1, 16), L[:, None], axis=0)
+
+    def evaluate(self, r) -> Scalar:
+        assert len(r) == self.num_vars
+        chis = EqPolynomial(r).evals_dev(self.Zm.device)
+        return mont_to_scalar(fq.dot(self.Zm, chis, axis=0))
+
+    # --- Hyrax commitment (dense_mlpoly.rs:153-257) ----------------------
+    def commit(self, gens: "PolyCommitmentGens", random_tape=None):
+        left, _ = EqPolynomial.compute_factored_lens(self.num_vars)
+        L_size = 1 << left
+        if random_tape is not None:
+            blinds = PolyCommitmentBlinds(
+                random_tape.random_vector(b"poly_blinds", L_size))
+        else:
+            blinds = PolyCommitmentBlinds([_ZERO] * L_size)
+        return self.commit_with_blind(gens, blinds), blinds
+
+    def commit_with_blind(self, gens: "PolyCommitmentGens", blinds):
+        L_size = len(blinds.blinds)
+        rows = self.Zm.reshape(L_size, len(self) // L_size, 16)
+        pts = commit_rows_device(rows, blinds.blinds, gens.gens.gens_n)
+        return PolyCommitment([p.compress() for p in pts])
+
+
+class PolyCommitmentGens:
+    """gens for sqrt(N)-row Hyrax commitments (dense_mlpoly.rs:26-38)."""
+
+    __slots__ = ("gens",)
+
+    def __init__(self, num_vars: int, label: bytes):
+        _, right = EqPolynomial.compute_factored_lens(num_vars)
+        self.gens = DotProductProofGens(1 << right, label)
+
+
+class PolyCommitmentBlinds:
+    __slots__ = ("blinds",)
+
+    def __init__(self, blinds):
+        self.blinds = list(blinds)
+
+
+class PolyCommitment:
+    __slots__ = ("C",)
+
+    def __init__(self, C):
+        self.C = list(C)  # list of 32-byte compressed points
+
+    def append_to_transcript(self, label: bytes, transcript) -> None:
+        # dense_mlpoly.rs:412-420
+        transcript.append_message(label, b"poly_commitment_begin")
+        for c in self.C:
+            transcript.append_point(b"poly_commitment_share", c)
+        transcript.append_message(label, b"poly_commitment_end")
+
+    def decompress(self):
+        return [RistrettoPoint.decompress(c) for c in self.C]
+
+
+# --------------------------------------------------------------------------
+# PolyEvalProof
+# --------------------------------------------------------------------------
+def _lz_blind(blinds, L) -> Scalar:
+    acc = _ZERO
+    for b, l in zip(blinds, L):
+        acc = acc + b * l
+    return acc
+
+
+class PolyEvalProof:
+    """Hyrax opening: L*Z reduction + log-size dot-product proof
+    (dense_mlpoly.rs:428-530 and the fork's batched-instances variant,
+    :861-1044)."""
+
+    __slots__ = ("proof",)
+
+    def __init__(self, proof: DotProductProofLog):
+        self.proof = proof
+
+    @staticmethod
+    def protocol_name() -> bytes:
+        return b"polynomial evaluation proof"
+
+    @staticmethod
+    def prove(poly: DensePolynomial, blinds_opt, r, Zr: Scalar, blind_Zr_opt,
+              gens: PolyCommitmentGens, transcript, random_tape):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        assert poly.get_num_vars() == len(r)
+        left, _ = EqPolynomial.compute_factored_lens(len(r))
+        L_size = 1 << left
+        blinds = blinds_opt if blinds_opt is not None else \
+            PolyCommitmentBlinds([_ZERO] * L_size)
+        assert len(blinds.blinds) == L_size
+        blind_Zr = blind_Zr_opt if blind_Zr_opt is not None else _ZERO
+
+        L, R = EqPolynomial(list(r)).compute_factored_evals(poly.Zm.device)
+        LZ = mont_to_scalars(poly.bound(L))
+        LZ_blind = _lz_blind(blinds.blinds, L)
+
+        proof, _C_LR, C_Zr_prime = DotProductProofLog.prove(
+            gens.gens, transcript, random_tape, LZ, LZ_blind, R, Zr,
+            blind_Zr, device=poly.Zm.device)
+        return PolyEvalProof(proof), C_Zr_prime
+
+    def verify(self, gens: PolyCommitmentGens, transcript, r, C_Zr: bytes,
+               comm: PolyCommitment, device) -> None:
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        L, R = EqPolynomial(list(r)).compute_factored_evals(device)
+        C_LZ = multiscalar_mul(L, comm.decompress()).compress()
+        self.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zr)
+
+    # --- batched opening: many instances, (rq, ry) trimmed per size ------
+    # One dot-product proof per distinct (num_proofs, num_inputs) pair;
+    # same-size instances fold in by a c-power RLC.
+    @staticmethod
+    def _disjoint_r_short(num_proofs: int, num_inputs: int, rq, ry):
+        nq, ny = log2(num_proofs), log2(num_inputs)
+        if ny >= len(ry):
+            ry_short = [_ZERO] * (ny - len(ry)) + list(ry)
+        else:
+            ry_short = list(ry[len(ry) - ny:])
+        rq_short = list(rq[len(rq) - nq:])
+        return rq_short + ry_short
+
+    @staticmethod
+    def prove_batched_instances_disjoint_rounds(
+            poly_list, num_proofs_list, num_inputs_list, blinds_opt, rq, ry,
+            Zr_list, blind_Zr_opt, gens: PolyCommitmentGens, transcript,
+            random_tape):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        assert len(poly_list) == len(Zr_list)
+
+        index_map = {}
+        LZ_list, Zc_list, L_list, R_list = [], [], [], []
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        for i, poly in enumerate(poly_list):
+            key = (num_proofs_list[i], num_inputs_list[i])
+            if key in index_map:
+                c = c * c_base
+                idx = index_map[key]
+                LZ = poly.bound(L_list[idx])
+                cm = scalars_to_mont([c], LZ.device)[0]
+                LZ_list[idx] = fq.add(LZ_list[idx], fq.mul(LZ, cm))
+                Zc_list[idx] = Zc_list[idx] + c * Zr_list[i]
+            else:
+                index_map[key] = len(LZ_list)
+                r = PolyEvalProof._disjoint_r_short(key[0], key[1], rq, ry)
+                L, R = EqPolynomial(r).compute_factored_evals(poly.Zm.device)
+                LZ_list.append(poly.bound(L))
+                Zc_list.append(Zr_list[i])
+                L_list.append(L)
+                R_list.append(R)
+
+        proofs = []
+        blind_Zr = blind_Zr_opt if blind_Zr_opt is not None else _ZERO
+        for i in range(len(LZ_list)):
+            L = L_list[i]
+            blinds = blinds_opt if blinds_opt is not None else \
+                PolyCommitmentBlinds([_ZERO] * len(L))
+            assert len(blinds.blinds) == len(L)
+            LZ_blind = _lz_blind(blinds.blinds, L)
+            proof, _, _ = DotProductProofLog.prove(
+                gens.gens, transcript, random_tape,
+                mont_to_scalars(LZ_list[i]), LZ_blind, R_list[i],
+                Zc_list[i], blind_Zr, device=LZ_list[i].device)
+            proofs.append(PolyEvalProof(proof))
+        return proofs
+
+    @staticmethod
+    def verify_batched_instances_disjoint_rounds(
+            proof_list, num_proofs_list, num_inputs_list,
+            gens: PolyCommitmentGens, transcript, rq, ry, Zr_list, comm_list,
+            device):
+        """Zr_list: list of RistrettoPoint (commitments to evals); the eq
+        tables are built on `device`."""
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+
+        index_map = {}
+        LZ_list, Zc_list, L_list, R_list = [], [], [], []
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        for i, comm in enumerate(comm_list):
+            pts = comm.decompress()
+            key = (num_proofs_list[i], num_inputs_list[i])
+            if key in index_map:
+                c = c * c_base
+                idx = index_map[key]
+                LZ = multiscalar_mul(L_list[idx][: len(pts)], pts)
+                LZ_list[idx] = LZ_list[idx] + LZ * c
+                Zc_list[idx] = Zc_list[idx] + Zr_list[i] * c
+            else:
+                index_map[key] = len(LZ_list)
+                r = PolyEvalProof._disjoint_r_short(key[0], key[1], rq, ry)
+                L, R = EqPolynomial(r).compute_factored_evals(device)
+                LZ_list.append(multiscalar_mul(L[: len(pts)], pts))
+                Zc_list.append(Zr_list[i])
+                L_list.append(L)
+                R_list.append(R)
+        assert len(LZ_list) == len(proof_list)
+
+        for i in range(len(LZ_list)):
+            proof_list[i].proof.verify(
+                len(R_list[i]), gens.gens, transcript, R_list[i],
+                LZ_list[i].compress(), Zc_list[i].compress(),
+            )

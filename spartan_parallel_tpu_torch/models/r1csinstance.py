@@ -1,0 +1,309 @@
+"""R1CS instance container: P instances' sparse A/B/C matrices.
+
+Reference: src/r1csinstance.rs:20 (R1CSInstance), src/sparse_mlpoly.rs:33
+(SparseMatPolynomial). The matrices live on the host as COO arrays and, per
+device, as CSR (rows) and CSC (columns) tensors for the sparse kernels of
+ops/spmv.py (K3): Az/Bz/Cz (multiply_vec_block, r1csinstance.rs:363), the
+phase-2 ABC tables (compute_eval_table_sparse_disjoint_rounds,
+r1csinstance.rs:484) and the verifier's A/B/C evaluations.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import device as _device
+from ..core.consts import L
+from ..ops import fq, spmv
+from ..ops import limbs as lb
+from ..ops.sumcheck import rev_perm
+from .custom_mlpoly import DensePolynomialPqx
+from .dense_mlpoly import EqPolynomial, log2, mont_to_scalars, next_pow2
+
+
+def _deflate_digest(raw: bytes) -> bytes:
+    """Level-6 zlib stream for the instance digest: the native tdefl port
+    (native/tdefl.c, the miniz/miniz_oxide algorithm the reference uses
+    through flate2) when available, else CPython zlib, as in the JAX
+    package. PARITY.md D1."""
+    import ctypes
+    import zlib
+
+    from ..core import native
+
+    lib = native.get()
+    if lib is not None:
+        cap = len(raw) + (len(raw) >> 6) + 1024
+        out = ctypes.create_string_buffer(cap)
+        n = lib.spartan_tdefl_zlib(raw, len(raw), out, cap, 6)
+        if n > 0:
+            return bytes(out.raw[:n])
+    return zlib.compress(raw, 6)
+
+
+class SparseMatPolynomial:
+    """COO sparse multilinear matrix polynomial (sparse_mlpoly.rs:33)."""
+
+    __slots__ = ("num_vars_x", "num_vars_y", "rows", "cols", "vals",
+                 "_mont", "_dev")
+
+    def __init__(self, num_vars_x: int, num_vars_y: int, entries=None,
+                 arrays=None):
+        """entries: list of (row, col, value); or arrays: (rows, cols,
+        vals) with int32 rows and cols and vals as ints mod l."""
+        self.num_vars_x = num_vars_x
+        self.num_vars_y = num_vars_y
+        if arrays is None:
+            arrays = ([e[0] for e in entries], [e[1] for e in entries],
+                      [e[2] for e in entries])
+        rows, cols, vals = arrays
+        self.rows = np.asarray(rows, dtype=np.int32)
+        self.cols = np.asarray(cols, dtype=np.int32)
+        self.vals = [int(v) % L for v in vals]
+        # the kernels index tables with these: reject what would read
+        # outside them
+        if not len(self.rows) == len(self.cols) == len(self.vals):
+            raise ValueError("rows, cols and vals differ in length")
+        for idx, nv in ((self.rows, num_vars_x), (self.cols, num_vars_y)):
+            if len(idx) and (idx.min() < 0 or idx.max() >= 1 << nv):
+                raise ValueError("matrix index out of range")
+        self._mont = None
+        self._dev = {}
+
+    def get_num_nz_entries(self) -> int:
+        return len(self.vals)
+
+    def vals_mont(self) -> np.ndarray:
+        """(nnz, 16) int32 Montgomery limbs of the values, encoded once
+        per distinct value (R1CS coefficients repeat: the digest and the
+        device tensors both need them)."""
+        if self._mont is None:
+            uniq = {}
+            idx = np.fromiter((uniq.setdefault(v, len(uniq))
+                               for v in self.vals), dtype=np.int64,
+                              count=len(self.vals))
+            self._mont = fq.encode(list(uniq)).reshape(-1, 16)[idx]
+        return self._mont
+
+    def _tensors(self, device):
+        """(csr, csc, coo) on `device`: csr = (row_ptr, cols, vals) sorted
+        by row, csc = (col_ptr, rows, vals) sorted by column, coo = (rows,
+        cols, vals) in entry order; vals in Montgomery form. The matrix is
+        static, so the sorts run once on the host."""
+        key = str(device)
+        if key not in self._dev:
+            vm = self.vals_mont()
+            nr, nc = 1 << self.num_vars_x, 1 << self.num_vars_y
+
+            def compressed(major, minor, n):
+                perm = np.argsort(major, kind="stable")
+                ptr = np.zeros(n + 1, dtype=np.int32)
+                ptr[1:] = np.cumsum(np.bincount(major, minlength=n))
+                return (lb.to_device(ptr, device),
+                        lb.to_device(minor[perm], device),
+                        lb.to_device(vm[perm], device))
+
+            self._dev[key] = (
+                compressed(self.rows, self.cols, nr),
+                compressed(self.cols, self.rows, nc),
+                (lb.to_device(self.rows, device),
+                 lb.to_device(self.cols, device), lb.to_device(vm, device)))
+        return self._dev[key]
+
+    def multiply_vec_batched(self, z: torch.Tensor) -> torch.Tensor:
+        """z: (Q, ncols, 16) Montgomery -> (Q, num_rows, 16)."""
+        return spmv.spmv_batched(*self._tensors(z.device)[0], z)
+
+    def eval_table(self, rx_tab: torch.Tensor) -> torch.Tensor:
+        """(num_cols, 16) table M^T eq(rx) (sparse_mlpoly.rs:505,524)."""
+        return spmv.eval_table(*self._tensors(rx_tab.device)[1], rx_tab)
+
+    def evaluate_with_tables(self, rx_tab, ry_tab) -> torch.Tensor:
+        return spmv.sparse_eval(*self._tensors(rx_tab.device)[2], rx_tab,
+                                ry_tab)
+
+
+class R1CSInstance:
+    """P instances of ragged-size R1CS (r1csinstance.rs:20-31). `device`
+    (default: the card) is where its products run unless a caller's
+    tensors say otherwise."""
+
+    def __init__(self, num_instances: int, max_num_cons: int, num_cons,
+                 num_vars: int, A_list, B_list, C_list, device=None):
+        assert max_num_cons == next_pow2(max_num_cons)
+        for c in num_cons:
+            assert c == next_pow2(c) and c <= max_num_cons
+        assert num_vars == next_pow2(num_vars)
+        assert len(A_list) == len(B_list) == len(C_list)
+        self.device = _device.resolve(device)
+        self.num_instances = num_instances
+        self.max_num_cons = max_num_cons
+        self.num_cons = list(num_cons)
+        self.num_vars = num_vars
+        nx, ny = log2(max_num_cons), log2(num_vars)
+
+        def mat(m):
+            if isinstance(m, SparseMatPolynomial):
+                return m
+            return SparseMatPolynomial(nx, ny, m)
+
+        self.A_list = [mat(a) for a in A_list]
+        self.B_list = [mat(b) for b in B_list]
+        self.C_list = [mat(c) for c in C_list]
+        self._digest = None
+
+    def get_num_instances(self) -> int:
+        return self.num_instances
+
+    def get_num_cons(self) -> int:
+        return self.max_num_cons
+
+    def get_inst_num_cons(self):
+        return self.num_cons
+
+    def get_num_vars(self) -> int:
+        return self.num_vars
+
+    def get_digest(self) -> bytes:
+        """zlib(bincode(self)): the byte layout of r1csinstance.rs:218-222
+        (bincode 1.x: usize as u64 LE, Vec with a u64 length, Scalar as the
+        32 raw bytes of its Montgomery limbs), compressed at level 6 by
+        native/tdefl.c (PARITY.md D1)."""
+        import struct
+
+        if self._digest is not None:
+            return self._digest
+        parts = []
+
+        def u64(v):
+            parts.append(struct.pack("<Q", v))
+
+        u64(self.num_instances)
+        u64(self.max_num_cons)
+        u64(len(self.num_cons))
+        for c in self.num_cons:
+            u64(c)
+        u64(self.num_vars)
+        for mats in (self.A_list, self.B_list, self.C_list):
+            u64(len(mats))
+            for m in mats:
+                u64(m.num_vars_x)
+                u64(m.num_vars_y)
+                u64(len(m.vals))
+                # each entry: (u64 row, u64 col, 32 B Montgomery limbs)
+                n = len(m.vals)
+                ent = np.zeros((n, 48), dtype=np.uint8)
+                ent[:, 0:8] = m.rows.astype("<u8").view(np.uint8) \
+                    .reshape(n, 8)
+                ent[:, 8:16] = m.cols.astype("<u8").view(np.uint8) \
+                    .reshape(n, 8)
+                ent[:, 16:48] = m.vals_mont().astype("<u2") \
+                    .view(np.uint8).reshape(n, 32)
+                parts.append(ent.tobytes())
+        self._digest = _deflate_digest(b"".join(parts))
+        return self._digest
+
+    # --- Az/Bz/Cz (r1csinstance.rs:363-438) -------------------------------
+    def multiply_vec_block(self, num_instances, num_proofs, max_num_proofs,
+                           num_inputs, max_num_inputs, max_num_cons,
+                           num_cons, z_nat):
+        """z_nat: (P, Q_max, W, Y_max, 16) Montgomery, natural q/y order.
+        Returns (Az, Bz, Cz) as DensePolynomialPqx with W = 1, q and x
+        bit-reversed."""
+        assert self.num_instances in (1, num_instances)
+        assert max_num_cons == self.max_num_cons
+        P = next_pow2(num_instances)
+        dev = z_nat.device
+        out = [torch.zeros((P, max_num_proofs, 1, max_num_cons, 16),
+                           dtype=torch.int32, device=dev) for _ in range(3)]
+        for p in range(num_instances):
+            p_inst = 0 if self.num_instances == 1 else p
+            qp = num_proofs[p]
+            zp = z_nat[p, :qp].reshape(qp, -1, 16)
+            for k, mats in enumerate((self.A_list, self.B_list, self.C_list)):
+                out[k][p, :qp, 0] = mats[p_inst].multiply_vec_batched(zp)
+        qperm = torch.as_tensor(rev_perm(max_num_proofs), device=dev)
+        xperm = torch.as_tensor(rev_perm(max_num_cons), device=dev)
+        return tuple(
+            DensePolynomialPqx(o.index_select(1, qperm).index_select(3, xperm),
+                               list(num_proofs), list(num_cons))
+            for o in out)
+
+    # --- phase-2 ABC tables (r1csinstance.rs:484-540) ----------------------
+    def compute_eval_table_sparse_disjoint_rounds(
+            self, num_instances, num_rows, num_segs, max_num_cols, num_cols,
+            rx_tab):
+        """rx_tab: (max_num_cons, 16) eq table over natural rows. Returns
+        per-instance (A_tab, B_tab, C_tab) of shape (num_segs_pad,
+        max_num_cols, 16) in natural y order."""
+        assert self.num_instances in (1, num_instances)
+        assert next_pow2(num_segs) * max_num_cols == self.num_vars
+        out = []
+        for p in range(self.num_instances):
+            out.append(tuple(
+                mats[p].eval_table(rx_tab).reshape(
+                    next_pow2(num_segs), max_num_cols, 16)
+                for mats in (self.A_list, self.B_list, self.C_list)))
+        return out
+
+    # --- verifier-side matrix evaluations (r1csinstance.rs:583-652) -------
+    def multi_evaluate(self, rx, ry, device=None):
+        dev = self.device if device is None else _device.resolve(device)
+        rx_tab = EqPolynomial(list(rx)).evals_dev(dev)
+        ry_tab = EqPolynomial(list(ry)).evals_dev(dev)
+        outs = []
+        for p in range(self.num_instances):
+            for m in (self.A_list[p], self.B_list[p], self.C_list[p]):
+                outs.append(m.evaluate_with_tables(rx_tab, ry_tab))
+        return mont_to_scalars(torch.stack(outs))
+
+    def evaluate(self, rx, ry, device=None):
+        assert self.num_instances == 1
+        e = self.multi_evaluate(rx, ry, device)
+        return e[0], e[1], e[2]
+
+
+def produce_synthetic_r1cs(num_instances: int, num_proofs, num_cons: int,
+                           num_vars: int, num_inputs: int, seed: int = 0,
+                           device=None):
+    """Random satisfiable data-parallel R1CS for tests and benches: the JAX
+    package's generator, row for row. Column space is [vars | 1, inputs,
+    0...] (two witness sections of num_vars columns each). Row i with
+    k = i % (num_vars/2) is u_k * u_{k+1} = v_k, or u_k * 1 = input_k on
+    every third row while k < num_inputs.
+
+    Returns (inst, vars_mat, inputs_mat) with host-int witnesses
+    vars_mat[p][q] (len num_vars) and inputs_mat[p][q] (len num_inputs)."""
+    rng = np.random.default_rng(seed)
+    h = num_vars // 2
+    one_col = num_vars
+    i = np.arange(num_cons, dtype=np.int64)
+    k = i % h
+    io = (i % 3 == 2) & (k < num_inputs)
+    ones = [1] * num_cons
+    A = (i, k, ones)
+    B = (i, np.where(io, one_col, (k + 1) % h), ones)
+    C = (i, np.where(io, one_col + 1 + k, h + k), ones)
+    nx, ny = log2(num_cons), log2(2 * num_vars)
+    mats = [[SparseMatPolynomial(nx, ny, arrays=m)]
+            for m in (A, B, C)]
+    inst = R1CSInstance(num_instances, num_cons, [num_cons] * num_instances,
+                        2 * num_vars, mats[0] * num_instances,
+                        mats[1] * num_instances, mats[2] * num_instances,
+                        device=device)
+
+    def rand_scalar():
+        return int.from_bytes(rng.bytes(40), "little") % L
+
+    vars_mat, inputs_mat = [], []
+    for p in range(num_instances):
+        vars_mat.append([])
+        inputs_mat.append([])
+        for _ in range(num_proofs[p]):
+            u = [rand_scalar() for _ in range(h)]
+            v = [u[k] * u[(k + 1) % h] % L for k in range(h)]
+            io_vals = [u[k] for k in range(num_inputs)]
+            vars_mat[p].append(u + v)
+            inputs_mat[p].append(io_vals)
+    return inst, vars_mat, inputs_mat

@@ -1,0 +1,300 @@
+"""Sumcheck round kernels for the two R1CS sumchecks (K4).
+
+Counterpart of the JAX package's ops/sumcheck.py (dense p1_*, p2_*,
+fold_chain). Same layout and semantics: phase-1 tables are (P, Q, X, 16)
+with q and x bit-reversed, phase-2 tables (P, W, Y, 16) with y
+bit-reversed; eq tables stay factored per axis. Buffers keep their size
+for the whole sumcheck: `n_half` is half the live length along the axis
+being bound, and the region past the live length is the field zero.
+
+`p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch csrc/sumcheck.cu
+on CUDA tensors (a step whose previous round bound the same axis runs as
+one fused kernel; at an axis change it binds through K1 and then
+evaluates). Binds go through K1 (ops/fq.bind). CPU tensors take the
+*_plain versions. Bound on the card by bytes (every live table entry
+read once per round), see csrc/sumcheck.cu.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import fq, kernels
+
+MODE_P = 1
+MODE_Q = 2
+MODE_W = 3
+MODE_X = 4
+
+_P1_AXIS = {MODE_X: 2, MODE_Q: 1, MODE_P: 0}
+_P2_AXIS = {MODE_X: 2, MODE_W: 1, MODE_P: 0}
+
+
+def rev_bits(x: int, size: int) -> int:
+    """Bit-reverse x within log2(size) bits (custom_dense_mlpoly.rs:38-43)."""
+    nbits = size.bit_length() - 1
+    out = 0
+    for i in range(nbits):
+        out = (out << 1) | ((x >> i) & 1)
+    return out
+
+
+def rev_perm(size: int) -> np.ndarray:
+    """Self-inverse permutation p with p[s] = rev_bits(s)."""
+    nbits = size.bit_length() - 1
+    idx = np.arange(size, dtype=np.int64)
+    out = np.zeros(size, dtype=np.int64)
+    for i in range(nbits):
+        out = (out << 1) | ((idx >> i) & 1)
+    return out
+
+
+def fold_chain(T: torch.Tensor, rs: torch.Tensor, axis: int) -> torch.Tensor:
+    """Bind len(rs) variables along `axis` in order (K1 binds); the live
+    prefix of length n >> k ends at index 0 of the full-size buffer."""
+    n = T.shape[axis]
+    for i in range(rs.shape[0]):
+        T = fq.bind(T, rs[i], axis, n >> (i + 1))
+    return T
+
+
+# --------------------------------------------------------------------------
+# Plain versions
+# --------------------------------------------------------------------------
+def _lohi(t: torch.Tensor, axis: int, n_half: int):
+    return t.narrow(axis, 0, n_half), t.narrow(axis, n_half, n_half)
+
+
+def _ext2(lo, hi):
+    """table extrapolated to the point 2: 2 hi - lo."""
+    return fq.sub_plain(fq.add_plain(hi, hi), lo)
+
+
+def _ext3(e2, lo, hi):
+    """the point 3 from the point 2: e2 + (hi - lo)."""
+    return fq.add_plain(e2, fq.sub_plain(hi, lo))
+
+
+def _total(t: torch.Tensor) -> torch.Tensor:
+    return fq.sum_plain(t.reshape(-1, 16), 0)
+
+
+def p1_evals_plain(tp, tq, tx, B, C, D, n_half: int, mode: int):
+    """Round-poly evaluations (e0, e2, e3) of eq_p eq_q eq_x (B C - D) as a
+    (3, 16) Montgomery tensor."""
+    axis = _P1_AXIS[mode]
+    n_half = int(n_half)
+    Bl, Bh = _lohi(B, axis, n_half)
+    Cl, Ch = _lohi(C, axis, n_half)
+    Dl, Dh = _lohi(D, axis, n_half)
+    eqs = [tp, tq, tx]
+    el, eh = _lohi(eqs[axis], 0, n_half)
+
+    def contract(b, c, d, efold):
+        fac = [t.reshape(s) for t, s in zip(
+            eqs, ((-1, 1, 1, 16), (1, -1, 1, 16), (1, 1, -1, 16)))]
+        shape = [1, 1, 1, 16]
+        shape[axis] = -1
+        fac[axis] = efold.reshape(shape)
+        w = fq.mul_plain(fq.mul_plain(fac[0], fac[1]), fac[2])
+        g = fq.sub_plain(fq.mul_plain(b, c), d)
+        return _total(fq.mul_plain(g, w))
+
+    e0 = contract(Bl, Cl, Dl, el)
+    B2, C2, D2, t2 = _ext2(Bl, Bh), _ext2(Cl, Ch), _ext2(Dl, Dh), \
+        _ext2(el, eh)
+    e2 = contract(B2, C2, D2, t2)
+    e3 = contract(_ext3(B2, Bl, Bh), _ext3(C2, Cl, Ch), _ext3(D2, Dl, Dh),
+                  _ext3(t2, el, eh))
+    return torch.stack([e0, e2, e3])
+
+
+def p1_bind(tp, tq, tx, B, C, D, r, n_half: int, mode: int):
+    """Bind the round's variable to r in every phase-1 table (K1)."""
+    axis = _P1_AXIS[mode]
+    n_half = int(n_half)
+    B, C, D = (fq.bind(t, r, axis, n_half) for t in (B, C, D))
+    eqs = [tp, tq, tx]
+    eqs[axis] = fq.bind(eqs[axis], r, 0, n_half)
+    return (*eqs, B, C, D)
+
+
+def _p1_compact(tp, tq, tx, B, C, D, mode: int):
+    """Fully bound axes collapse to length 1 at a mode change."""
+    if mode != MODE_X and tx.shape[0] > 1:
+        tx, B, C, D = tx[:1], B[:, :, :1], C[:, :, :1], D[:, :, :1]
+    if mode == MODE_P and tq.shape[0] > 1:
+        tq, B, C, D = tq[:1], B[:, :1], C[:, :1], D[:, :1]
+    return tuple(t.contiguous() for t in (tp, tq, tx, B, C, D))
+
+
+def p1_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
+                  mode_prev: int, mode: int):
+    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev)
+    tabs = _p1_compact(*tabs, mode)
+    return p1_evals_plain(*tabs, n_half, mode), tabs
+
+
+def p2_evals_plain(ep, ABC, Z, n_half: int, mode: int, single_inst: bool):
+    """(e0, e2, e3) of eq_p ABC Z as a (3, 16) Montgomery tensor; ABC may
+    hold one instance shared by every p."""
+    axis = _P2_AXIS[mode]
+    n_half = int(n_half)
+    Zl, Zh = _lohi(Z, axis, n_half)
+    if mode == MODE_P and single_inst:
+        Al = Ah = ABC
+    else:
+        Al, Ah = _lohi(ABC, axis, n_half)
+    if mode == MODE_P:
+        el, eh = _lohi(ep, 0, n_half)
+    else:
+        el = eh = ep
+
+    def contract(a, z, e):
+        m = fq.mul_plain(fq.mul_plain(a, z), e.reshape(-1, 1, 1, 16))
+        return _total(m)
+
+    e0 = contract(Al, Zl, el)
+    A2, Z2, t2 = _ext2(Al, Ah), _ext2(Zl, Zh), _ext2(el, eh)
+    e2 = contract(A2, Z2, t2)
+    e3 = contract(_ext3(A2, Al, Ah), _ext3(Z2, Zl, Zh), _ext3(t2, el, eh))
+    return torch.stack([e0, e2, e3])
+
+
+def p2_bind(ep, ABC, Z, r, n_half: int, mode: int, single_inst: bool):
+    """Bind the round's variable to r in every phase-2 table (K1)."""
+    axis = _P2_AXIS[mode]
+    n_half = int(n_half)
+    Z = fq.bind(Z, r, axis, n_half)
+    if not (mode == MODE_P and single_inst):
+        ABC = fq.bind(ABC, r, axis, n_half)
+    if mode == MODE_P:
+        ep = fq.bind(ep, r, 0, n_half)
+    return ep, ABC, Z
+
+
+def _p2_compact(ep, ABC, Z, mode: int):
+    if mode != MODE_X and Z.shape[2] > 1:
+        Z, ABC = Z[:, :, :1], ABC[:, :, :1]
+    if mode == MODE_P and Z.shape[1] > 1:
+        Z, ABC = Z[:, :1], ABC[:, :1]
+    return ep, ABC.contiguous(), Z.contiguous()
+
+
+def p2_step_plain(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
+                  mode: int, single_inst: bool):
+    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst)
+    tabs = _p2_compact(*tabs, mode)
+    return p2_evals_plain(*tabs, n_half, mode, single_inst), tabs
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+def _scratch(n_elems: int, device):
+    nb = -(-n_elems // 256)
+    part = torch.empty((3 * nb, 8), dtype=torch.int32, device=device)
+    out = torch.empty((3, 16), dtype=torch.int32, device=device)
+    return part, out
+
+
+def _p1_launch(tp, tq, tx, B, C, D, n_half, mode, r=None, n_half_prev=None):
+    axis = _P1_AXIS[mode]
+    bind = r is not None
+    if bind and 2 * n_half != n_half_prev:
+        raise ValueError("fused step binds the same axis: n_half_prev "
+                         "must be 2 * n_half")
+    P, Q, X = B.shape[:3]
+    if C.shape != B.shape or D.shape != B.shape or \
+            (tp.shape[0], tq.shape[0], tx.shape[0]) != (P, Q, X):
+        raise ValueError("phase-1 table shapes disagree")
+    tabs = [t.contiguous() for t in (tp, tq, tx, B, C, D)]
+    r = r.reshape(16).contiguous() if bind else tabs[0]
+    kernels.require_cuda(*tabs, r)
+    dev = B.device
+    if bind:
+        nB, nC, nD = (torch.empty_like(t) for t in tabs[3:])
+        neq = torch.empty_like(tabs[axis])
+    else:
+        nB = nC = nD = neq = tabs[0]
+    part, out = _scratch(P * Q * X, dev)
+    kernels.launch("sc_p1_round", "p1_round_launch",
+                   *(t.data_ptr() for t in tabs),
+                   nB.data_ptr(), nC.data_ptr(), nD.data_ptr(),
+                   neq.data_ptr(), P, Q, X, axis, int(n_half), int(bind),
+                   r.data_ptr(), part.data_ptr(), out.data_ptr(),
+                   kernels.stream(B))
+    if not bind:
+        return out, None
+    eqs = list(tabs[:3])
+    eqs[axis] = neq
+    return out, (*eqs, nB, nC, nD)
+
+
+def p1_evals(tp, tq, tx, B, C, D, n_half: int, mode: int):
+    if B.device.type == "cpu":
+        return p1_evals_plain(tp, tq, tx, B, C, D, n_half, mode)
+    return _p1_launch(tp, tq, tx, B, C, D, int(n_half), mode)[0]
+
+
+def p1_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
+            mode_prev: int, mode: int):
+    """The previous round's bind fused with this round's evaluations;
+    returns (evals, tables)."""
+    if B.device.type == "cpu":
+        return p1_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev,
+                             n_half, mode_prev, mode)
+    if mode_prev == mode:
+        return _p1_launch(tp, tq, tx, B, C, D, int(n_half), mode, r_prev,
+                          int(n_half_prev))
+    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev)
+    tabs = _p1_compact(*tabs, mode)
+    return p1_evals(*tabs, n_half, mode), tabs
+
+
+def _p2_launch(ep, ABC, Z, n_half, mode, single_inst, r=None,
+               n_half_prev=None):
+    axis = _P2_AXIS[mode]
+    bind = r is not None
+    if bind and 2 * n_half != n_half_prev:
+        raise ValueError("fused step binds the same axis: n_half_prev "
+                         "must be 2 * n_half")
+    P, Wn, Y = Z.shape[:3]
+    PB = ABC.shape[0]
+    if ABC.shape[1:] != Z.shape[1:] or PB not in (1, P) or \
+            ep.shape[0] != P:
+        raise ValueError("phase-2 table shapes disagree")
+    tabs = [t.contiguous() for t in (ep, ABC, Z)]
+    r = r.reshape(16).contiguous() if bind else tabs[0]
+    kernels.require_cuda(*tabs, r)
+    fold_a = not (axis == 0 and PB == 1)
+    nABC = torch.empty_like(tabs[1]) if bind and fold_a else tabs[1]
+    nZ = torch.empty_like(tabs[2]) if bind else tabs[2]
+    nep = torch.empty_like(tabs[0]) if bind and axis == 0 else tabs[0]
+    part, out = _scratch(P * Wn * Y, Z.device)
+    kernels.launch("sc_p2_round", "p2_round_launch",
+                   *(t.data_ptr() for t in tabs), nABC.data_ptr(),
+                   nZ.data_ptr(), nep.data_ptr(), P, PB, Wn, Y, axis,
+                   int(n_half), int(bind), r.data_ptr(), part.data_ptr(),
+                   out.data_ptr(), kernels.stream(Z))
+    return out, (nep, nABC, nZ) if bind else None
+
+
+def p2_evals(ep, ABC, Z, n_half: int, mode: int, single_inst: bool):
+    if Z.device.type == "cpu":
+        return p2_evals_plain(ep, ABC, Z, n_half, mode, single_inst)
+    return _p2_launch(ep, ABC, Z, int(n_half), mode, single_inst)[0]
+
+
+def p2_step(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
+            mode: int, single_inst: bool):
+    if Z.device.type == "cpu":
+        return p2_step_plain(ep, ABC, Z, r_prev, n_half_prev, n_half,
+                             mode_prev, mode, single_inst)
+    if mode_prev == mode:
+        return _p2_launch(ep, ABC, Z, int(n_half), mode, single_inst,
+                          r_prev, int(n_half_prev))
+    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst)
+    tabs = _p2_compact(*tabs, mode)
+    return p2_evals(*tabs, n_half, mode, single_inst), tabs

@@ -1,0 +1,100 @@
+"""K4 (sumcheck round kernels): the port's plain path against the JAX
+package's ops/sumcheck.py p1_* / p2_* on the same fixed-size buffers,
+for every mode, including the live-length (n_half) semantics and the
+compaction at a mode change. Tolerance: exact equality."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spartan_parallel_tpu.core.consts import L
+from spartan_parallel_tpu.ops import fq as jfq
+from spartan_parallel_tpu.ops import sumcheck as jsck
+from spartan_parallel_tpu_torch.ops import sumcheck as tsck
+
+rng = np.random.default_rng(44)
+
+
+def tab(*shape):
+    """A random Montgomery table in both packages."""
+    n = int(np.prod(shape))
+    enc = jfq.encode([int.from_bytes(rng.bytes(40), "little") % L
+                      for _ in range(n)]).reshape(shape + (16,))
+    return jnp.asarray(enc), torch.from_numpy(enc.astype(np.int32))
+
+
+def same(j, t):
+    return np.array_equal(np.asarray(j).astype(np.int64),
+                          t.numpy().astype(np.int64))
+
+
+def all_same(js, ts):
+    return len(js) == len(ts) and all(same(a, b) for a, b in zip(js, ts))
+
+
+P1 = [(jsck.MODE_X, jsck.MODE_X, 2, 1), (jsck.MODE_X, jsck.MODE_Q, 1, 1),
+      (jsck.MODE_Q, jsck.MODE_P, 1, 1)]
+
+
+@pytest.mark.parametrize("mode_prev,mode,nh_prev,nh", P1)
+def test_phase1_round_matches_jax(mode_prev, mode, nh_prev, nh):
+    """(P, Q, X) = (2, 2, 4): evals, fused step and final bind."""
+    tp, tq, tx = tab(2), tab(2), tab(4)
+    B, C, D = tab(2, 2, 4), tab(2, 2, 4), tab(2, 2, 4)
+    r = tab(1)
+    if mode_prev == jsck.MODE_Q:  # x fully bound: compact as the loop does
+        tx = (tx[0][:1], tx[1][:1])
+        B, C, D = ((t[0][:, :, :1], t[1][:, :, :1]) for t in (B, C, D))
+    js = [t[0] for t in (tp, tq, tx, B, C, D)]
+    ts = [t[1] for t in (tp, tq, tx, B, C, D)]
+    assert same(jsck.p1_evals(*js, np.uint32(nh_prev), mode=mode_prev),
+                tsck.p1_evals(*ts, nh_prev, mode=mode_prev))
+    jev, jtabs = jsck.p1_step(*js, r[0][0], np.uint32(nh_prev),
+                              np.uint32(nh), mode_prev=mode_prev, mode=mode)
+    tev, ttabs = tsck.p1_step(*ts, r[1][0], nh_prev, nh,
+                              mode_prev=mode_prev, mode=mode)
+    assert same(jev, tev)
+    assert all_same(jtabs, ttabs)
+    assert all_same(jsck.p1_bind(*jtabs, r[0][0], np.uint32(nh), mode=mode),
+                    tsck.p1_bind(*ttabs, r[1][0], nh, mode=mode))
+
+
+P2 = [(jsck.MODE_X, jsck.MODE_X, 2, 1, False),
+      (jsck.MODE_X, jsck.MODE_W, 1, 1, True),
+      (jsck.MODE_W, jsck.MODE_P, 1, 1, False),
+      (jsck.MODE_W, jsck.MODE_P, 1, 1, True)]
+
+
+@pytest.mark.parametrize("mode_prev,mode,nh_prev,nh,single", P2)
+def test_phase2_round_matches_jax(mode_prev, mode, nh_prev, nh, single):
+    """(P, W, Y) = (2, 2, 4), ABC per instance or shared (single_inst)."""
+    ep, Z = tab(2), tab(2, 2, 4)
+    ABC = tab(1, 2, 4) if single else tab(2, 2, 4)
+    r = tab(1)
+    if mode_prev == jsck.MODE_W:
+        Z = (Z[0][:, :, :1], Z[1][:, :, :1])
+        ABC = (ABC[0][:, :, :1], ABC[1][:, :, :1])
+    js = [t[0] for t in (ep, ABC, Z)]
+    ts = [t[1] for t in (ep, ABC, Z)]
+    assert same(jsck.p2_evals(*js, np.uint32(nh_prev), mode=mode_prev,
+                              single_inst=single),
+                tsck.p2_evals(*ts, nh_prev, mode=mode_prev,
+                              single_inst=single))
+    jev, jtabs = jsck.p2_step(*js, r[0][0], np.uint32(nh_prev),
+                              np.uint32(nh), mode_prev=mode_prev, mode=mode,
+                              single_inst=single)
+    tev, ttabs = tsck.p2_step(*ts, r[1][0], nh_prev, nh,
+                              mode_prev=mode_prev, mode=mode,
+                              single_inst=single)
+    assert same(jev, tev)
+    assert all_same(jtabs, ttabs)
+    assert all_same(jsck.p2_bind(*jtabs, r[0][0], np.uint32(nh), mode=mode,
+                                 single_inst=single),
+                    tsck.p2_bind(*ttabs, r[1][0], nh, mode=mode,
+                                 single_inst=single))
+
+
+def test_rev_perm_matches_jax():
+    for n in (1, 2, 8, 64):
+        assert np.array_equal(jsck.rev_perm(n), tsck.rev_perm(n))
