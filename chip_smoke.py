@@ -8,18 +8,31 @@ Phases, each printing one JSON line:
   1. the card (nvidia-smi name and power limit) and the build of the four
      CUDA kernel sources (csrc/*.cu, one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
-     shapes of the NIZK at 2^20 (exact equality; points after ristretto
+     shapes its path gives it (exact equality; points after ristretto
      compression), with the kernel's time, the plain version's time and
-     the least time the card could take (bound_ms);
-  3. a fixed-tape NIZK at 2^10 constraints x 2^10 variables x 10 inputs,
-     proved on the card and on the CPU: the serialized proofs must be
-     identical, the proof must verify, and a tampered one must not;
+     the least time the card could take (bound_ms): the NIZK's kernels at
+     2^20, and the data-parallel proof's (K4's x, q, w and p rounds, K5's
+     class rounds, eq_fold, pc_bind, the ABC combination) at the shapes of
+     the runs of phases 5 and 6;
+  3. fixed tapes, proved on the card and on the CPU, whose serialized
+     proofs must be identical and verify: the NIZK at 2^10 constraints x
+     2^10 variables x 10 inputs (a tampered proof must fail), and the
+     data-parallel R1CSProof at 16 x 16 x 4 with P = 3 instances executed
+     [8, 2, 1] times (the classed layout) and P = 4 executed [2, 2, 2, 2]
+     times (the dense layout);
   4. the NIZK at 2^20 x 2^20 x 10 inputs (the upstream README instance)
      on the card: prove, verify, reject a tampered proof, per-stage times,
-     proof bytes, peak memory and each kernel's launches, which must all
-     be > 0.
-Then the kernel table as one JSON line, the card line, and last
-{"ok": true, "device": {...}}. Any failure exits non-zero before that.
+     proof bytes, peak memory and each kernel's launches;
+  5. the data-parallel R1CSProof of BASELINE config 4 (bench.py bench_dp
+     at 2^20 sigma work): P = 4 blocks of 2^10 constraints x 2^10
+     variables x 10 inputs, executed [512, 128, 32, 32] times (the
+     q-size-classed prover), on the card: witness commits, prove, verify,
+     reject a tampered proof, with the same report;
+  6. the same with uniform counts [256] x 4 (the dense prover).
+Each of phases 4-6 sets the launch counts to 0 before it and reads them
+after; every kernel row must have been launched on its path. Then the
+kernel table as one JSON line, the card line, and last {"ok": true,
+"device": {...}}. Any failure exits non-zero before that.
 
 Needs a CUDA card and the repository beside this script; imports nothing
 of JAX or of the JAX package.
@@ -62,6 +75,21 @@ def bound(nbytes: float, imads: float):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = imads / IMAD_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def p1_muls(pairs: int, lines: int) -> int:
+    """Field products a phase-1 round's evaluations need: e (B C - D) at
+    t = 0, 2, 3 for each pair (6), and for each line along the bound axis
+    the product of the other two axes' eq factors and the scale of the
+    line's three sums by it (4)."""
+    return 6 * pairs + 4 * lines
+
+
+def p2_muls(pairs: int, lines: int, p_axis: bool = False) -> int:
+    """Phase 2: A Z at t = 0, 2, 3 for each pair (3) and the scale of each
+    line's three sums by its eq_p (3); e A Z for each pair (6) when the
+    bound axis is p, along which eq_p varies."""
+    return 6 * pairs if p_axis else 3 * pairs + 3 * lines
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -130,10 +158,13 @@ def check_kernels(log_n: int, dev, reps: int):
     gen.manual_seed(7)
     n = 1 << log_n
     E = 64  # bytes of one field element (16 int32 limbs)
-    rows = []
+    rows, paths = [], {}
 
     def record(name, source, replaces, kern, plain, err_fn, nbytes, imads,
-               reps_k=reps):
+               reps_k=reps, path="nizk", counter=None):
+        """Time one kernel against its plain version. Its launches are
+        read later from `counter` (default: its name) in the run of
+        `path`."""
         got = kern()
         want = plain()
         torch.cuda.synchronize()
@@ -147,6 +178,7 @@ def check_kernels(log_n: int, dev, reps: int):
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None}
         rows.append(row)
+        paths[name] = (path, counter or name)
         emit({"phase": "kernel", **row})
         if err != 0:
             raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -170,6 +202,16 @@ def check_kernels(log_n: int, dev, reps: int):
     record("fq_dot", "fq.cu", "spartan_parallel_tpu/ops/fq.py:193",
            lambda: fq.dot(a, b), lambda: fq.dot_plain(a, b), field_err,
            2 * n * E, n * IMAD_FQ_MUL)
+
+    # the eq table of log_n challenges (the NIZK's tau_x and rx tables)
+    from spartan_parallel_tpu_torch.models.dense_mlpoly import eq_evals
+
+    rs = rand_field((log_n,), gen, dev)
+    half = 1 << (log_n // 2)
+    record("eq_evals", "fq.cu",
+           "spartan_parallel_tpu/models/dense_mlpoly.py:89",
+           lambda: eq_evals(rs, log_n), lambda: eq_evals_plain(rs, log_n),
+           field_err, (n + log_n) * E, (n + 4 * half) * IMAD_FQ_MUL)
 
     # K2 at the Hyrax commit shape: B = N = sqrt(n) rows and points
     side = 1 << (log_n // 2)
@@ -242,7 +284,7 @@ def check_kernels(log_n: int, dev, reps: int):
     record("sc_p1_round", "sumcheck.cu",
            "spartan_parallel_tpu/ops/sumcheck.py:260",
            lambda: p1(sck.p1_step), lambda: p1(sck.p1_step_plain), cmp_step,
-           8 * n * E, n // 2 * 4 * IMAD_FQ_MUL + n // 4 * 12 * IMAD_FQ_MUL)
+           8 * n * E, (2 * n + p1_muls(n // 4, 1)) * IMAD_FQ_MUL)
     ABC = rand_field((1, 2, n), gen, dev)
     Z = rand_field((1, 2, n), gen, dev)
 
@@ -253,8 +295,178 @@ def check_kernels(log_n: int, dev, reps: int):
     record("sc_p2_round", "sumcheck.cu",
            "spartan_parallel_tpu/ops/sumcheck.py:427",
            lambda: p2(sck.p2_step), lambda: p2(sck.p2_step_plain), cmp_step,
-           8 * n * E, n * 2 * IMAD_FQ_MUL + n // 2 * 9 * IMAD_FQ_MUL)
-    return rows
+           8 * n * E, (2 * n + p2_muls(n // 2, 2)) * IMAD_FQ_MUL)
+    check_dp_kernels(dev, gen, record, cmp_step, E)
+    return rows, paths
+
+
+def check_dp_kernels(dev, gen, record, cmp_step, E):
+    """The data-parallel proof's kernels at the shapes of phases 5 and 6:
+    P = 4 blocks, Q = 512 (skewed) or 256 (uniform) executions,
+    X = Y = 2^10, W = 2. Bytes: each live table entry read once and each
+    written entry written once; operations: the field products (one per
+    bound entry, p1_muls / p2_muls for the evaluations)."""
+    import torch
+
+    from spartan_parallel_tpu_torch.models import r1csproof as rp
+    from spartan_parallel_tpu_torch.ops import fq
+    from spartan_parallel_tpu_torch.ops import limbs as lb
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    X, Q, P_, W = sck.MODE_X, sck.MODE_Q, sck.MODE_P, sck.MODE_W
+    one = lb.to_device(fq.ONE_MONT, dev)[None]
+    r = rand_field((), gen, dev)
+    tp = rand_field((4,), gen, dev)
+    src = "spartan_parallel_tpu/ops/sumcheck.py"
+
+    def tabs(*shape):
+        return tuple(rand_field(shape, gen, dev) for _ in range(3))
+
+    # K4, phase 1 of the uniform run: a fused x round at (P, Q, X) =
+    # (4, 256, 1024) (eq_p and eq_q read per row), then a fused q round
+    # and the p evaluations at (4, 256, 1)
+    tq = rand_field((256,), gen, dev)
+    tx = rand_field((1024,), gen, dev)
+    Bx = tabs(4, 256, 1024)
+    n = 4 * 256 * 1024
+    record("sc_p1_round_dp", "sumcheck.cu", f"{src}:260",
+           lambda: sck.p1_step(tp, tq, tx, *Bx, r, 512, 256, X, X),
+           lambda: sck.p1_step_plain(tp, tq, tx, *Bx, r, 512, 256, X, X),
+           cmp_step, 6 * n * E + (4 + 256 + 2 * 1024) * E,
+           (3 * n // 2 + 512 + p1_muls(n // 4, 1024)) * IMAD_FQ_MUL,
+           path="dp_uniform",           counter="sc_p1_round")
+    del Bx
+    Bq = tabs(4, 256, 1)
+    n = 4 * 256
+    record("sc_p1_round_q", "sumcheck.cu", f"{src}:260",
+           lambda: sck.p1_step(tp, tq, one, *Bq, r, 128, 64, Q, Q),
+           lambda: sck.p1_step_plain(tp, tq, one, *Bq, r, 128, 64, Q, Q),
+           cmp_step, 6 * n * E + 2 * 256 * E + 4 * E,
+           (3 * n // 2 + 128 + p1_muls(n // 4, 4)) * IMAD_FQ_MUL,
+           path="dp_uniform")
+    record("sc_p1_round_p", "sumcheck.cu", f"{src}:250",
+           lambda: sck.p1_evals(tp, tq, one, *Bq, 2, P_),
+           lambda: sck.p1_evals_plain(tp, tq, one, *Bq, 2, P_),
+           field_err, 3 * n * E + 260 * E, p1_muls(n // 2, 256) * IMAD_FQ_MUL,
+           path="dp_uniform")
+    # K4, phase 2 at (P, W, Y) = (4, 2, 1024), one ABC table per instance
+    ABC, Z, _ = tabs(4, 2, 1024)
+    n = 4 * 2 * 1024
+    record("sc_p2_round_dp", "sumcheck.cu", f"{src}:427",
+           lambda: sck.p2_step(tp, ABC, Z, r, 512, 256, X, X, False),
+           lambda: sck.p2_step_plain(tp, ABC, Z, r, 512, 256, X, X, False),
+           cmp_step, 4 * n * E + 4 * E,
+           (n + p2_muls(n // 4, 8)) * IMAD_FQ_MUL, path="dp_uniform",
+           counter="sc_p2_round")
+    for name, mode in (("sc_p2_round_w", W), ("sc_p2_round_p", P_)):
+        nh = 1 if mode == W else 2
+        muls = p2_muls(n // 2, n // 2, mode == P_)
+        record(name, "sumcheck.cu", f"{src}:270",
+               lambda mode=mode, nh=nh: sck.p2_evals(tp, ABC, Z, nh, mode,
+                                                     False),
+               lambda mode=mode, nh=nh: sck.p2_evals_plain(tp, ABC, Z, nh,
+                                                           mode, False),
+               field_err, 2 * n * E + 4 * E, muls * IMAD_FQ_MUL,
+               path="dp_uniform")
+
+    # K5: the class rounds of the skewed run [512, 128, 32, 32]. Active x:
+    # the class (P_c, Q_c, X) = (1, 512, 1024) at p0 = 0, S = 1, and the
+    # class of two blocks executed 32 times, (2, 32, 1024) at p0 = 2,
+    # S = 16 (eq_q read at a stride); active q: the first class after its
+    # x rounds, (1, 512, 1), and the block executed 128 times, (1, 128, 1)
+    # at p0 = 1, S = 4; inactive q: the last class, (2, 1, 1) at p0 = 2
+    tq = rand_field((512,), gen, dev)
+    forms = (("x", X, True, tabs(1, 512, 1024), 0, 1, 512),
+             ("xs", X, True, tabs(2, 32, 1024), 2, 16, 512),
+             ("q", Q, True, tabs(1, 512, 1), 0, 1, 256),
+             ("qs", Q, True, tabs(1, 128, 1), 1, 4, 64),
+             ("qi", Q, False, tabs(2, 1, 1), 2, 16, 64))
+    for form, mode, active, T, p0, S, nh in forms:
+        n = T[0].shape[0] * T[0].shape[1] * T[0].shape[2]
+        kw = dict(p0=p0, S=S, active=active)
+        step = dict(mode_prev=mode, mode=mode, p0=p0, S=S,
+                    active_prev=active, active=active)
+        pairs = n // 2 if active else n  # evaluated pairs, unfused
+        lines = n // T[0].shape[2 if mode == X else 1]
+        record(f"sc_pc_round_{form}", "sumcheck.cu", f"{src}:392",
+               lambda T=T, nh=nh, mode=mode, kw=kw: sck.pc_evals(
+                   tp, tq, tx, *T, nh, mode, **kw),
+               lambda T=T, nh=nh, mode=mode, kw=kw: sck.pc_evals_plain(
+                   tp, tq, tx, *T, nh, mode, **kw),
+               field_err, 3 * n * E, p1_muls(pairs, lines) * IMAD_FQ_MUL,
+               path="dp_skewed")
+        record(f"sc_pc_round_{form}_fused", "sumcheck.cu", f"{src}:399",
+               lambda T=T, nh=nh, step=step: sck.pc_step(
+                   tp, tq, tx, *T, r, nh, nh // 2, **step),
+               lambda T=T, nh=nh, step=step: sck.pc_step_plain(
+                   tp, tq, tx, *T, r, nh, nh // 2, **step),
+               cmp_step, 6 * n * E,
+               (3 * pairs + p1_muls(pairs // 2 if active else pairs, lines))
+               * IMAD_FQ_MUL, path="dp_skewed")
+    record("eq_fold", "fq.cu", f"{src}:302",
+           lambda: sck.eq_fold(tx, r, 512),
+           lambda: fq.bind_plain(tx, r, 0, 512), field_err,
+           2 * 1024 * E, 512 * IMAD_FQ_MUL, path="dp_skewed")
+    Tx = forms[0][3]
+    record("pc_bind", "fq.cu", f"{src}:414",
+           lambda: sck.pc_bind(*Tx, r, 1, X, True),
+           lambda: sck.pc_bind_plain(*Tx, r, 1, X, True),
+           lambda got, want: max(field_err(g, w) for g, w in zip(got, want)),
+           3 * (2 + 512 * 1024) * E, 3 * 512 * IMAD_FQ_MUL,
+           path="dp_skewed")
+    Ti = forms[-1][3]
+    record("pc_bind_inactive", "fq.cu", f"{src}:414",
+           lambda: sck.pc_bind(*Ti, r, 1, Q, False),
+           lambda: sck.pc_bind_plain(*Ti, r, 1, Q, False),
+           lambda got, want: max(field_err(g, w) for g, w in zip(got, want)),
+           2 * 3 * 2 * E + E, 3 * 2 * IMAD_FQ_MUL, path="dp_skewed")
+
+    # the phase-2 ABC table of P = 4 blocks: three (P, W, Y) eval tables;
+    # the last block masked past 10 live inputs
+    abc = tabs(4, 2, 1024)
+    rabc = rand_field((3,), gen, dev)
+    yperm = torch.as_tensor(sck.rev_perm(1024), device=dev)
+    live = [1024, 1024, 1024, 10]
+    n = 4 * 2 * 1024
+    record("abc_comb", "fq.cu", "spartan_parallel_tpu/models/r1csproof.py:227",
+           lambda: rp._abc_comb_dev(abc, rabc, live, yperm),
+           lambda: abc_comb_plain(abc, rabc, live, yperm),
+           field_err, 4 * n * E, 3 * n * IMAD_FQ_MUL, path="dp_uniform")
+
+
+def eq_evals_plain(rs, ell: int):
+    """models/dense_mlpoly.py eq_evals from K1's plain versions: doubling
+    up to 2^13 entries, above that the product of the tables of the high
+    and the low half of the variables."""
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import fq
+    from spartan_parallel_tpu_torch.ops import limbs as lb
+
+    def doubling(r, k):
+        tab = lb.to_device(fq.ONE_MONT, r.device)[None]
+        for j in range(k):
+            hi = fq.mul_plain(tab, r[j])
+            tab = torch.stack([fq.sub_plain(tab, hi), hi], 1).reshape(-1, 16)
+        return tab
+
+    if ell <= 13:
+        return doubling(rs, ell)
+    half = ell // 2
+    return fq.mul_plain(doubling(rs[:half], half)[:, None],
+                        doubling(rs[half:], ell - half)[None]).reshape(-1, 16)
+
+
+def abc_comb_plain(tabs, rabc, num_inputs, yperm):
+    """models/r1csproof.py _abc_comb_dev from K1's plain versions."""
+    from spartan_parallel_tpu_torch.ops import fq
+
+    comb = fq.add_plain(fq.add_plain(fq.mul_plain(tabs[0], rabc[0]),
+                                     fq.mul_plain(tabs[1], rabc[1])),
+                        fq.mul_plain(tabs[2], rabc[2]))
+    for p, ni in enumerate(num_inputs):
+        comb[p, :, ni:] = 0
+    return comb.index_select(2, yperm)
 
 
 # --------------------------------------------------------------------------
@@ -297,17 +509,98 @@ def nizk_run(log_cons: int, num_inputs: int, device, seed_tape: bool):
             "stages": stages}
 
 
-def expect_reject(run, device) -> None:
+def dp_run(num_proofs, log_cons: int, num_inputs: int, device,
+           seed_tape: bool):
+    """The data-parallel R1CSProof of bench.py bench_dp: P blocks of
+    2^log_cons constraints x 2^log_cons variables per witness section
+    (vars and io), block p executed num_proofs[p] times. Commits the
+    witness, proves and verifies."""
+    import torch
+
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.models import r1csproof as rp
+    from spartan_parallel_tpu_torch.models.r1csinstance import (
+        produce_synthetic_r1cs,
+    )
+    from spartan_parallel_tpu_torch.utils import timer
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    P, qmax, n = len(num_proofs), max(num_proofs), 1 << log_cons
+    t0 = time.perf_counter()
+    inst, vars_mat, inputs_mat = produce_synthetic_r1cs(
+        P, num_proofs, n, n, num_inputs, seed=2, device=device)
+    io_mat = [[[1] + list(io) + [0] * (n - 1 - len(io))
+               for io in inputs_mat[p]] for p in range(P)]
+    secs = [rp.ProverWitnessSecInfo.from_scalars([n] * P, m, device)
+            for m in (vars_mat, io_mat)]
+    del vars_mat, io_mat
+    # gens cover the largest committed witness poly: Q_max * n
+    gens = rp.R1CSGens(b"gens_r1cs_sat", n, qmax * n)
+    setup_s = time.perf_counter() - t0
+    tape = RandomTape(b"proof", seed=b"\x0b" * 32) if seed_tape else \
+        RandomTape(b"proof")
+    timer.records.clear()
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    comms = [[s.poly_w[p].commit(gens.gens_pc, None)[0] for p in range(P)]
+             for s in secs]
+    sync()
+    commit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, r = rp.R1CSProof.prove(
+        P, qmax, num_proofs, n, [n] * P, secs, inst, gens,
+        Transcript(b"dp_bench"), tape, device)
+    sync()
+    prove_s = time.perf_counter() - t0
+    stages = {k: timer.records.get(k) for k in (
+        "prove_z_mat_gen", "prove_vec_mult", "prove_sc_phase_one",
+        "prove_abc_gen", "prove_z_gen", "prove_z_bind",
+        "prove_sc_phase_two", "polyeval")}
+    views = [rp.VerifierWitnessSecInfo(num_proofs, [n] * P, c)
+             for c in comms]
+
+    def verify(prf):
+        _, bound = inst.multi_evaluate_bound_rp(r[0], r[2], r[3],
+                                                device=device)
+        return prf.verify(P, qmax, num_proofs, n, views, n, gens, bound,
+                          Transcript(b"dp_bench"), device)
+
+    t0 = time.perf_counter()
+    if verify(proof) != r:
+        raise AssertionError("the verifier returned another point")
+    verify_s = time.perf_counter() - t0
+    stages.update({k: timer.records.get(k) for k in (
+        "verify_sc1", "verify_sc2", "verify_sc_commitment_opening")})
+    raw = ser.serialize(proof, "R1CSProof")
+    return {"bytes": raw, "verify": verify, "setup_s": setup_s,
+            "commit_s": commit_s, "prove_s": prove_s, "verify_s": verify_s,
+            "stages_s": stages,
+            "compressed": ser.compressed_size(proof, "R1CSProof")}
+
+
+def expect_reject(run, device=None) -> None:
+    """Swap two round commitments of a proof's phase-1 sumcheck: its
+    verifier must reject it. `run` is a NIZK run (device given) or a
+    data-parallel one."""
     from spartan_parallel_tpu_torch import serialization as ser
     from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
     from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-    bad = ser.deserialize(run["bytes"], "NIZK")
-    sc = bad.r1cs_sat_proof.sc_proof_phase1
+    nizk = device is not None
+    bad = ser.deserialize(run["bytes"], "NIZK" if nizk else "R1CSProof")
+    sc = (bad.r1cs_sat_proof if nizk else bad).sc_proof_phase1
     sc.comm_evals[0], sc.comm_evals[1] = sc.comm_evals[1], sc.comm_evals[0]
     try:
-        bad.verify(run["inst"], run["inputs"], run["gens"],
-                   Transcript(b"nizk_example"), device=device)
+        if nizk:
+            bad.verify(run["inst"], run["inputs"], run["gens"],
+                       Transcript(b"nizk_example"), device=device)
+        else:
+            run["verify"](bad)
     except (ProofVerifyError, AssertionError):
         return
     raise AssertionError("a tampered proof verified")
@@ -348,7 +641,7 @@ def main() -> int:
                         or "spill" in ln]
                     for k, v in built.items()}})
 
-    rows = check_kernels(LOG_KERNEL, dev, REPS)
+    rows, paths = check_kernels(LOG_KERNEL, dev, REPS)
 
     on_card = nizk_run(10, 10, dev, seed_tape=True)
     on_cpu = nizk_run(10, 10, "cpu", seed_tape=True)
@@ -360,11 +653,22 @@ def main() -> int:
           "prove_s_cpu": on_cpu["prove_s"], "tamper_rejected": True})
     if not same:
         raise AssertionError("card and CPU proofs differ")
+    # skewed counts take the classed layout, uniform ones the dense one
+    for num_proofs in ([8, 2, 1], [2, 2, 2, 2]):
+        dp_card = dp_run(num_proofs, 4, 4, dev, seed_tape=True)
+        dp_cpu = dp_run(num_proofs, 4, 4, "cpu", seed_tape=True)
+        same = dp_card["bytes"] == dp_cpu["bytes"]
+        emit({"phase": "dp_fixed_tape", "num_proofs": num_proofs,
+              "log_cons": 4, "bytes_identical": same,
+              "proof_bytes": len(dp_card["bytes"]), "verified": True})
+        if not same:
+            raise AssertionError("card and CPU data-parallel proofs differ")
 
+    counts = {}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
     run = nizk_run(args.log_cons, 10, dev, seed_tape=False)
-    counts = dict(kernels.launches)
+    counts["nizk"] = dict(kernels.launches)
     expect_reject(run, dev)
     emit({"phase": "nizk", "log_cons": args.log_cons, "card": card,
           "setup_s": run["setup_s"], "prove_s": run["prove_s"],
@@ -374,9 +678,43 @@ def main() -> int:
           "upstream_compressed_bytes": 48134,
           "stages_s": run["stages"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts, "tamper_rejected": True})
+          "launches": counts["nizk"], "tamper_rejected": True})
+    del run
+
+    # BASELINE config 4 at 2^20 sigma work: skewed counts take the
+    # q-size-classed prover (K5), uniform ones the dense prover (K4's q,
+    # w and p rounds)
+    for path, num_proofs in (("dp_skewed", [512, 128, 32, 32]),
+                             ("dp_uniform", [256] * 4)):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        run = dp_run(num_proofs, 10, 10, dev, seed_tape=False)
+        counts[path] = dict(kernels.launches)
+        expect_reject(run)
+        sigma = sum(num_proofs) << 10
+        emit({"phase": path, "num_proofs": num_proofs, "log_cons": 10,
+              "num_inputs": 10, "sigma_work": sigma, "card": card,
+              "setup_s": run["setup_s"], "commit_s": run["commit_s"],
+              "prove_s": run["prove_s"], "verify_s": run["verify_s"],
+              "upstream_single_core_cpu_prove_s": 4.442 * sigma / (1 << 20),
+              "proof_bytes": len(run["bytes"]),
+              "proof_bytes_compressed": run["compressed"],
+              "stages_s": run["stages_s"],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": counts[path], "tamper_rejected": True})
+        del run
+    k5 = [f"sc_pc_round_{form}{fused}" for form in ("x", "xs", "q", "qs", "qi")
+          for fused in ("", "_fused")]
+    if not all(counts["dp_skewed"].get(k) for k in k5):
+        raise AssertionError("K5 not launched in every form")
+    dp_modes = ("sc_p1_round_q", "sc_p1_round_p", "sc_p2_round_w",
+                "sc_p2_round_p")
+    if not all(counts["dp_uniform"].get(k) for k in dp_modes):
+        raise AssertionError("K4's data-parallel rounds not launched")
+
     for row in rows:
-        row["launches"] = counts.get(row["name"], 0)
+        path, counter = paths[row["name"]]
+        row["launches"] = counts[path].get(counter, 0)
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "

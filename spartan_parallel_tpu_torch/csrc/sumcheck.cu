@@ -1,4 +1,4 @@
-// K4: sumcheck round kernels for the two R1CS sumchecks.
+// K4 and K5: sumcheck round kernels for the two R1CS sumchecks.
 //
 // Replaces the JAX package's ops/sumcheck.py p1_evals / p1_step and
 // p2_evals / p2_step (and, through K1's bind, p1_bind / p2_bind). Tables
@@ -19,6 +19,15 @@
 // computes the bound values of its pair from the four entries it needs,
 // writes them to the new tables, and threads past the previous live length
 // write the dead region's zeros.
+//
+// K5, the size-classed phase 1 (k_pc_round), replaces ops/sumcheck.py
+// pc_evals / pc_step for one q-size class of instances: its (P_c, Q_c, X)
+// tables sit at p offset p0 and q stride S of the shared eq tables, which
+// it only reads (eq_fold binds them once per round for every class, where
+// K4 binds its own eq table in the owner threads). An active round binds
+// x or q as K4 does; an inactive q round (the class is bound on q, one
+// live entry per instance) evaluates with eq_q = (tq[0], tq[n_half]) and a
+// zero high half, and its fused bind is the (1 - r) scale.
 //
 // Bound on the card: bytes. A round reads every live table entry once
 // (64 B each) and, fused, writes the bound half; the ~20 products per pair
@@ -255,6 +264,107 @@ __global__ void k_p2_round(const int32_t* __restrict__ ep, Tab A, Tab Z,
   finish_block(s0, s2, s3, part);
 }
 
+// K5: one q-size class. Tables (Pc, Qn, Xn), at instance offset p0 and q
+// stride S of the global eq tables tp, tq, tx (read-only). axis 2 binds x,
+// axis 1 binds q; inactive (axis 1 only) takes Qn = Xn = 1.
+__global__ void k_pc_round(const int32_t* __restrict__ tp,
+                           const int32_t* __restrict__ tq,
+                           const int32_t* __restrict__ tx, Tab B, Tab C,
+                           Tab D, long long Pc, long long Qn, long long Xn,
+                           int axis, int active, long long n_half,
+                           long long p0, long long S, int bind,
+                           const int32_t* __restrict__ r,
+                           uint32_t* __restrict__ part) {
+  uint32_t s0[8], s2[8], s3[8];
+  zero8(s0);
+  zero8(s2);
+  zero8(s3);
+  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (e < Pc * Qn * Xn) {
+    uint32_t rr[8];
+    if (bind) load16(r, rr);
+    uint32_t Bl[8], Bh[8], Cl[8], Ch[8], Dl[8], Dh[8], el[8], eh[8], W[8],
+        f[8];
+    bool live = true;
+    if (!active) {
+      // T' = T - r T = (1 - r) T; the high half of the q pair is zero
+      load16(B.src + 16 * e, Bl);
+      load16(C.src + 16 * e, Cl);
+      load16(D.src + 16 * e, Dl);
+      if (bind) {
+        fq_mul(f, Bl, rr);
+        fq_sub(Bl, Bl, f);
+        fq_mul(f, Cl, rr);
+        fq_sub(Cl, Cl, f);
+        fq_mul(f, Dl, rr);
+        fq_sub(Dl, Dl, f);
+        store16(B.dst + 16 * e, Bl);
+        store16(C.dst + 16 * e, Cl);
+        store16(D.dst + 16 * e, Dl);
+      }
+      zero8(Bh);
+      zero8(Ch);
+      zero8(Dh);
+      load16(tq, el);
+      load16(tq + 16 * n_half, eh);
+      load16(tp + 16 * (p0 + e), W);
+      load16(tx, f);
+    } else {
+      const long long n_axis = axis == 1 ? Qn : Xn;
+      const long long inner = axis == 1 ? Xn : 1;
+      const long long in = e % inner, rest = e / inner;
+      const long long i = rest % n_axis, o = rest / n_axis;
+      const long long nhp = 2 * n_half;
+      live = i < n_half;
+      if (live) {
+        const long long lo = (o * n_axis + i) * inner + in;
+        const long long hi = lo + n_half * inner;
+        const long long step = nhp * inner;
+        pair_val(Bl, B.src, lo, step, bind, rr);
+        pair_val(Bh, B.src, hi, step, bind, rr);
+        pair_val(Cl, C.src, lo, step, bind, rr);
+        pair_val(Ch, C.src, hi, step, bind, rr);
+        pair_val(Dl, D.src, lo, step, bind, rr);
+        pair_val(Dh, D.src, hi, step, bind, rr);
+        if (bind) {
+          store16(B.dst + 16 * lo, Bl);
+          store16(B.dst + 16 * hi, Bh);
+          store16(C.dst + 16 * lo, Cl);
+          store16(C.dst + 16 * hi, Ch);
+          store16(D.dst + 16 * lo, Dl);
+          store16(D.dst + 16 * hi, Dh);
+        }
+        if (axis == 2) {  // o = p Qn + j
+          load16(tx + 16 * i, el);
+          load16(tx + 16 * (i + n_half), eh);
+          load16(tp + 16 * (p0 + o / Qn), W);
+          load16(tq + 16 * (S * (o % Qn)), f);
+        } else {  // o = p
+          load16(tq + 16 * (S * i), el);
+          load16(tq + 16 * (S * (i + n_half)), eh);
+          load16(tp + 16 * (p0 + o), W);
+          load16(tx + 16 * in, f);
+        }
+      } else if (bind && i >= nhp) {
+        const long long at = (o * n_axis + i) * inner + in;
+        uint32_t z[8];
+        zero8(z);
+        store16(B.dst + 16 * at, z);
+        store16(C.dst + 16 * at, z);
+        store16(D.dst + 16 * at, z);
+      }
+    }
+    if (live) {
+      fq_mul(W, W, f);
+      eval3(s0, s2, s3, el, eh, Bl, Bh, Cl, Ch, Dl, Dh);
+      fq_mul(s0, s0, W);
+      fq_mul(s2, s2, W);
+      fq_mul(s3, s3, W);
+    }
+  }
+  finish_block(s0, s2, s3, part);
+}
+
 static unsigned blocks(long long n) {
   return (unsigned)((n + REDUCE_THREADS - 1) / REDUCE_THREADS);
 }
@@ -288,6 +398,24 @@ int p2_round_launch(const int32_t* ep, const int32_t* ABC, const int32_t* Z,
   k_p2_round<<<nb, REDUCE_THREADS, 0, s>>>(ep, Tab{ABC, nABC}, Tab{Z, nZ},
                                            nep, P, PB, Wn, Y, axis, n_half,
                                            bind, r, part);
+  reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
+  return (int)cudaGetLastError();
+}
+
+// part: 3 * ceil(Pc Qn Xn / 256) scratch values of 8 words; out (3, 16).
+int pc_round_launch(const int32_t* tp, const int32_t* tq, const int32_t* tx,
+                    const int32_t* B, const int32_t* C, const int32_t* D,
+                    int32_t* nB, int32_t* nC, int32_t* nD, long long Pc,
+                    long long Qn, long long Xn, int axis, int active,
+                    long long n_half, long long p0, long long S, int bind,
+                    const int32_t* r, uint32_t* part, int32_t* out,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const unsigned nb = blocks(Pc * Qn * Xn);
+  k_pc_round<<<nb, REDUCE_THREADS, 0, s>>>(tp, tq, tx, Tab{B, nB}, Tab{C, nC},
+                                           Tab{D, nD}, Pc, Qn, Xn, axis,
+                                           active, n_half, p0, S, bind, r,
+                                           part);
   reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
   return (int)cudaGetLastError();
 }

@@ -62,12 +62,16 @@ def mont_to_scalar(a: torch.Tensor) -> Scalar:
 # --------------------------------------------------------------------------
 # Eq polynomial
 # --------------------------------------------------------------------------
+def _eq_mul(a, b):
+    return fq.mul(a, b, counter="eq_evals")
+
+
 def _eq_doubling(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
     """(2^ell, 16) eq table by doubling: the index's MSB is r[0]."""
     tab = lb.to_device(fq.ONE_MONT, r_mont.device)[None]
     for j in range(ell):
-        hi = fq.mul(tab, r_mont[j])
-        lo = fq.sub(tab, hi)
+        hi = _eq_mul(tab, r_mont[j])
+        lo = fq.sub(tab, hi, counter="eq_evals")
         tab = torch.stack([lo, hi], dim=1).reshape(-1, 16)
     return tab
 
@@ -75,13 +79,14 @@ def _eq_doubling(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
 def eq_evals(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
     """(ell, 16) Montgomery challenges -> (2^ell, 16) eq table
     (dense_mlpoly.rs:76-91). Above 2^13 entries it is the product of the
-    tables of the high and the low half of the variables (hi-major)."""
+    tables of the high and the low half of the variables (hi-major). The
+    products are K1 launches counted as eq_evals."""
     if ell <= 13:
         return _eq_doubling(r_mont, ell)
     half = ell // 2
     hi_tab = _eq_doubling(r_mont[:half], half)
     lo_tab = _eq_doubling(r_mont[half:], ell - half)
-    return fq.mul(hi_tab[:, None], lo_tab[None]).reshape(-1, 16)
+    return _eq_mul(hi_tab[:, None], lo_tab[None]).reshape(-1, 16)
 
 
 class EqPolynomial:

@@ -29,7 +29,12 @@ from ..utils.random_tape import RandomTape
 from ..utils.timer import Timer
 from .dense_mlpoly import DensePolynomial, EqPolynomial, PolyCommitment, \
     log2
-from .r1csproof import R1CSGens, R1CSProof
+from .r1csproof import (
+    ProverWitnessSecInfo,
+    R1CSGens,
+    R1CSProof,
+    VerifierWitnessSecInfo,
+)
 
 _ZERO = Scalar.zero()
 _ONE = Scalar.one()
@@ -110,10 +115,10 @@ class NIZK:
         # witness sec 0: private vars, committed with zero row blinds as the
         # fork does for every witness poly (lib.rs:1973 etc. pass None)
         t_wit = Timer("witness_commit")
-        vars_poly = DensePolynomial.from_scalars([int(v) for v in vars_],
-                                                 dev)
-        comm_vars, _blinds = vars_poly.commit(gens.gens_r1cs_sat.gens_pc,
-                                              None)
+        vars_sec = ProverWitnessSecInfo.from_scalars(
+            [num_vars], [[[int(v) for v in vars_]]], dev)
+        comm_vars, _blinds = vars_sec.poly_w[0].commit(
+            gens.gens_r1cs_sat.gens_pc, None)
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
 
         # witness sec 1: public io (deterministic zero-blind commitment)
@@ -121,17 +126,19 @@ class NIZK:
                                  gens.gens_r1cs_sat.gens_pc, dev)
         if fast is not None:
             Zm_io, comm_io = fast
-            io_poly = DensePolynomial(Zm_io)
+            io_sec = ProverWitnessSecInfo.from_tensors(
+                [num_vars], [Zm_io.reshape(1, num_vars, 16)])
         else:
-            io_poly = DensePolynomial.from_scalars(
-                _io_sec(num_vars, inputs), dev)
-            comm_io, _ = io_poly.commit(gens.gens_r1cs_sat.gens_pc, None)
+            io_sec = ProverWitnessSecInfo.from_scalars(
+                [num_vars], [[_io_sec(num_vars, inputs)]], dev)
+            comm_io, _ = io_sec.poly_w[0].commit(gens.gens_r1cs_sat.gens_pc,
+                                                 None)
         comm_io.append_to_transcript(b"poly_commitment", transcript)
         t_wit.stop(dev)
 
         proof, r = R1CSProof.prove(
-            [vars_poly, io_poly], inst, gens.gens_r1cs_sat, transcript,
-            random_tape, dev)
+            1, 1, [1], num_vars, [num_vars], [vars_sec, io_sec], inst,
+            gens.gens_r1cs_sat, transcript, random_tape, dev)
         timer.stop(dev)
         return NIZK(proof, comm_vars, r)
 
@@ -161,8 +168,10 @@ class NIZK:
         eA, eB, eC = inst.evaluate(rx, ry_full, device=dev)
         timer_eval.stop(dev)
 
+        views = [VerifierWitnessSecInfo([1], [num_vars], [c])
+                 for c in (self.comm_vars, comm_io)]
         r_out = self.r1cs_sat_proof.verify(
-            num_vars, inst.get_num_cons(), [self.comm_vars, comm_io],
+            1, 1, [1], num_vars, views, inst.get_num_cons(),
             gens.gens_r1cs_sat, (eA, eB, eC), transcript, dev)
         if r_out != self.r:
             raise ProofVerifyError("NIZK evaluation point mismatch")

@@ -19,7 +19,8 @@ from ..ops import fq, spmv
 from ..ops import limbs as lb
 from ..ops.sumcheck import rev_perm
 from .custom_mlpoly import DensePolynomialPqx
-from .dense_mlpoly import EqPolynomial, log2, mont_to_scalars, next_pow2
+from .dense_mlpoly import DensePolynomial, EqPolynomial, log2, \
+    mont_to_scalars, next_pow2
 
 
 def _deflate_digest(raw: bytes) -> bytes:
@@ -230,6 +231,29 @@ class R1CSInstance:
                                list(num_proofs), list(num_cons))
             for o in out)
 
+    def multiply_vec_block_classed(self, p0: int, num_proofs_c: int,
+                                   max_num_cons: int, z_nat_c):
+        """Az/Bz/Cz of one q-size class of instances.
+
+        z_nat_c: (P_c, Q_c, W, Y, 16) natural-order slice of z. Returns
+        three (P_c, Q_c, X, 16) tensors with q bit-reversed within the
+        class and x bit-reversed (the class layout of ops/sumcheck.py
+        pc_*). No p padding: classes never bind p before they merge."""
+        P_c, Q_c = int(z_nat_c.shape[0]), int(z_nat_c.shape[1])
+        assert num_proofs_c == Q_c and max_num_cons == self.max_num_cons
+        dev = z_nat_c.device
+        out = [torch.empty((P_c, Q_c, max_num_cons, 16), dtype=torch.int32,
+                           device=dev) for _ in range(3)]
+        for i in range(P_c):
+            p_inst = 0 if self.num_instances == 1 else p0 + i
+            zp = z_nat_c[i].reshape(Q_c, -1, 16)
+            for k, mats in enumerate((self.A_list, self.B_list, self.C_list)):
+                out[k][i] = mats[p_inst].multiply_vec_batched(zp)
+        qperm = torch.as_tensor(rev_perm(Q_c), device=dev)
+        xperm = torch.as_tensor(rev_perm(max_num_cons), device=dev)
+        return tuple(o.index_select(1, qperm).index_select(2, xperm)
+                     for o in out)
+
     # --- phase-2 ABC tables (r1csinstance.rs:484-540) ----------------------
     def compute_eval_table_sparse_disjoint_rounds(
             self, num_instances, num_rows, num_segs, max_num_cols, num_cols,
@@ -257,6 +281,16 @@ class R1CSInstance:
             for m in (self.A_list[p], self.B_list[p], self.C_list[p]):
                 outs.append(m.evaluate_with_tables(rx_tab, ry_tab))
         return mont_to_scalars(torch.stack(outs))
+
+    def multi_evaluate_bound_rp(self, rp, rx, ry, device=None):
+        """Every instance's (A, B, C) at (rx, ry), and each of the three
+        lists bound to rp as a multilinear polynomial over p."""
+        dev = self.device if device is None else _device.resolve(device)
+        eval_list = self.multi_evaluate(rx, ry, dev)
+        bound = tuple(
+            DensePolynomial.from_scalars(eval_list[k::3], dev).evaluate(rp)
+            for k in range(3))
+        return eval_list, bound
 
     def evaluate(self, rx, ry, device=None):
         assert self.num_instances == 1

@@ -3,15 +3,18 @@
 `ZKSumcheckInstanceProof` (sumcheck.rs:75) carries one committed round
 polynomial, a claim commitment and a dot-product proof per round; the
 verifier (sumcheck.rs:94-186) never sees plaintext round polynomials. The
-two provers are the fork's disjoint-rounds variants that drive both R1CS
-sumchecks (sumcheck.rs:788, :1067), run as the JAX package's host loop:
-each round's evaluations and table binds are one device call
-(ops/sumcheck.py, K4 fused with K1 binds), and the host holds the merlin
+provers are the fork's disjoint-rounds variants that drive both R1CS
+sumchecks (sumcheck.rs:788, :1067), and phase 1's q-size-classed form, run
+as the JAX package's host loop: each round's evaluations and table binds
+are one device call per table set (ops/sumcheck.py: K4, or K5 per class,
+fused with the previous round's bind), and the host holds the merlin
 transcript, the degree-3 UniPoly and the small Pedersen/sigma work. One
-device-to-host copy of three field elements per round.
+device-to-host copy of three field elements per table set and round.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
@@ -102,11 +105,12 @@ class ZKSumcheckInstanceProof:
     @staticmethod
     def _rounds(claim, blind_claim, num_rounds, modes, live, first, step,
                 gens_1, gens_n, transcript, random_tape):
-        """The host round loop shared by both phases. modes[j] is round j's
+        """The host round loop shared by the provers. modes[j] is round j's
         axis; first(n_half, mode) and step(rm_prev, n_half_prev, mode_prev,
-        n_half, mode) return the round's (3, 16) evaluations. Returns the
-        proof, the challenges, the last round's pending bind and the final
-        claim blind."""
+        n_half, mode) return the round's evaluations as (..., 3, 16): one
+        (e0, e2, e3) per part (a q-size class), summed on the host. Returns
+        the proof, the challenges, the last round's pending bind and the
+        final claim blind."""
         blinds_poly = random_tape.random_vector(b"blinds_poly", num_rounds)
         blinds_evals = random_tape.random_vector(b"blinds_evals", num_rounds)
         claim_per_round = claim
@@ -121,7 +125,8 @@ class ZKSumcheckInstanceProof:
                 evd = first(n_half, mode)
             else:
                 evd = step(*pending, n_half, mode)
-            e0, e2, e3 = mont_to_scalars(evd)
+            ev = mont_to_scalars(evd)
+            e0, e2, e3 = (sum(ev[k::3], _ZERO) for k in range(3))
             poly = UniPoly.from_evals([e0, claim_per_round - e0, e2, e3])
             comm_poly = poly.commit(gens_n, blinds_poly[j]).compress()
             transcript.append_point(b"comm_poly", comm_poly)
@@ -182,6 +187,114 @@ class ZKSumcheckInstanceProof:
             mont_to_scalar(C[0, 0, 0]),
             mont_to_scalar(D[0, 0, 0]),
         ]
+        return proof, r, claims, blind_last
+
+    # --- phase-1 prover, q-size classed (O(sum Q_p) tables) ----------------
+    @staticmethod
+    def prove_phase1_classed(
+            claim: Scalar, blind_claim: Scalar, num_rounds: int,
+            num_rounds_x_max: int, num_rounds_q_max: int, num_rounds_p: int,
+            tp, tq, tx, classes, gens_1: MultiCommitGens,
+            gens_n: MultiCommitGens, transcript, random_tape):
+        """Transcript-identical to the dense phase-1 prover, but Az/Bz/Cz
+        live as one table per q-size class, so the prover holds
+        O(sum_p Q_p X) entries like the reference's ragged Pqx storage
+        (custom_dense_mlpoly.rs:16-32), not O(P Q_max X).
+
+        classes: list of (p0, B_c, C_c, D_c) with B_c (P_c, Q_c, X, 16), q
+        bit-reversed within the class, instances sorted by decreasing Q_c
+        so that the classes cover the p axis contiguously from p0. The
+        shared eq tables fold once per round (eq_fold) before the class
+        kernels (K5) read them; the p rounds run K4 on the classes merged
+        to one entry per instance. The JAX package's host loop; its
+        device-resident round scans are a later slice."""
+        assert num_rounds == num_rounds_x_max + num_rounds_q_max + \
+            num_rounds_p
+        modes = ([MODE_X] * num_rounds_x_max + [MODE_Q] * num_rounds_q_max
+                 + [MODE_P] * num_rounds_p)
+        q_max = int(tq.shape[0])
+        live = {MODE_P: int(tp.shape[0]), MODE_Q: q_max,
+                MODE_X: int(tx.shape[0])}
+        eq = {MODE_P: tp, MODE_Q: tq, MODE_X: tx}
+        cls = [{"p0": p0, "S": q_max // int(B.shape[1]), "T": (B, C, D),
+                "nh": None, "active": None} for (p0, B, C, D) in classes]
+        merged = []  # (B, C, D) with one entry per instance, p padded
+
+        def tables():
+            return eq[MODE_P], eq[MODE_Q], eq[MODE_X]
+
+        def class_round(n_half, mode, prev):
+            evs = []
+            for c in cls:
+                # a class is active while the global q fold still splits
+                # its stride-S rows; then its n_half is its own
+                active = mode == MODE_X or n_half >= c["S"]
+                nh = n_half // c["S"] if mode == MODE_Q and active else n_half
+                if prev is None:
+                    ev = sck.pc_evals(*tables(), *c["T"], nh, mode, c["p0"],
+                                      c["S"], active)
+                else:
+                    ev, c["T"] = sck.pc_step(
+                        *tables(), *c["T"], prev[0], c["nh"], nh, prev[1],
+                        mode, c["p0"], c["S"], c["active"], active)
+                c["nh"], c["active"] = nh, active
+                evs.append(ev)
+            return torch.stack(evs)
+
+        def merge(rm, mode_prev):
+            """The classes' last bind, then one entry per instance."""
+            parts = []
+            for c in cls:
+                B, C, D = c["T"]
+                if rm is not None:
+                    B, C, D = sck.pc_bind(B, C, D, rm, c["nh"], mode_prev,
+                                          c["active"])
+                parts.append(torch.stack([t[:, :1, :1] for t in (B, C, D)]))
+            cat = torch.cat(parts, 1)  # (3, P_real, 1, 1, 16)
+            pad = live[MODE_P] - cat.shape[1]
+            if pad > 0:
+                cat = torch.cat([cat, cat.new_zeros(
+                    (3, pad) + cat.shape[2:])], 1)
+            merged[:] = [t.contiguous() for t in cat]
+            eq[MODE_Q], eq[MODE_X] = eq[MODE_Q][:1], eq[MODE_X][:1]
+
+        def first(n_half, mode):
+            if mode != MODE_P:
+                return class_round(n_half, mode, None)
+            merge(None, None)
+            return sck.p1_evals(*tables(), *merged, n_half, MODE_P)
+
+        def step(rm_p, nh_p, mode_p, n_half, mode):
+            if mode_p != MODE_P:
+                eq[mode_p] = sck.eq_fold(eq[mode_p], rm_p, nh_p)
+            if mode != MODE_P:
+                return class_round(n_half, mode, (rm_p, mode_p))
+            if not merged:
+                merge(rm_p, mode_p)
+                return sck.p1_evals(*tables(), *merged, n_half, MODE_P)
+            evd, tabs = sck.p1_step(*tables(), *merged, rm_p, nh_p, n_half,
+                                    mode_prev=MODE_P, mode=MODE_P)
+            eq[MODE_P], eq[MODE_Q], eq[MODE_X] = tabs[:3]
+            merged[:] = tabs[3:]
+            return evd
+
+        proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
+            claim, blind_claim, num_rounds, modes, live, first, step,
+            gens_1, gens_n, transcript, random_tape)
+        if pending is None:
+            merge(None, None)
+        elif pending[2] == MODE_P:  # final bind for the last round
+            tabs = sck.p1_bind(*tables(), *merged, pending[0], pending[1],
+                               mode=MODE_P)
+            eq[MODE_P], eq[MODE_Q], eq[MODE_X] = tabs[:3]
+            merged[:] = tabs[3:]
+        else:
+            rm_p, nh_p, mode_p = pending
+            eq[mode_p] = sck.eq_fold(eq[mode_p], rm_p, nh_p)
+            merge(rm_p, mode_p)
+        tpv, tqv, txv = (mont_to_scalar(t[0]) for t in tables())
+        claims = [tpv * tqv * txv] + [mont_to_scalar(t[0, 0, 0])
+                                      for t in merged]
         return proof, r, claims, blind_last
 
     # --- phase-2 prover (sumcheck.rs:788-1065) ------------------------------

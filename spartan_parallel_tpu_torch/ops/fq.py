@@ -126,7 +126,8 @@ def _check_limbs(t: torch.Tensor) -> None:
         raise ValueError(f"expected (..., 16) limbs, got {tuple(t.shape)}")
 
 
-def _binop(name: str, plain, a: torch.Tensor, b: torch.Tensor):
+def _binop(name: str, plain, a: torch.Tensor, b: torch.Tensor,
+           counter: str | None = None):
     _check_limbs(a)
     _check_limbs(b)
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -140,21 +141,24 @@ def _binop(name: str, plain, a: torch.Tensor, b: torch.Tensor):
     kernels.launch(name, name + "_launch", a.data_ptr(), b.data_ptr(),
                    out.data_ptr(), a.numel() // 16, int(bcast),
                    kernels.stream(a))
+    if counter is not None:
+        kernels.count(counter)
     return out
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul(a: torch.Tensor, b: torch.Tensor, counter: str | None = None):
     """Montgomery product a*b*R^-1: the field multiply. b may be a single
-    element broadcast over a."""
-    return _binop("fq_mul", mul_plain, a, b)
+    element broadcast over a. A launch counts as fq_mul and, when a
+    caller's own function runs on this kernel, also under `counter`."""
+    return _binop("fq_mul", mul_plain, a, b, counter)
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _binop("fq_add", add_plain, a, b)
+def add(a: torch.Tensor, b: torch.Tensor, counter: str | None = None):
+    return _binop("fq_add", add_plain, a, b, counter)
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return _binop("fq_sub", sub_plain, a, b)
+def sub(a: torch.Tensor, b: torch.Tensor, counter: str | None = None):
+    return _binop("fq_sub", sub_plain, a, b, counter)
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:
@@ -162,8 +166,9 @@ def neg(a: torch.Tensor) -> torch.Tensor:
 
 
 def bind(t: torch.Tensor, r: torch.Tensor, axis: int, n_half: int,
-         out_len: int | None = None) -> torch.Tensor:
-    """One variable bound to r along `axis` (see bind_plain)."""
+         out_len: int | None = None, counter: str | None = None):
+    """One variable bound to r along `axis` (see bind_plain); `counter` as
+    in mul."""
     _check_limbs(t)
     axis = axis % (t.dim() - 1)
     if t.device.type == "cpu":
@@ -182,6 +187,8 @@ def bind(t: torch.Tensor, r: torch.Tensor, axis: int, n_half: int,
     kernels.launch("fq_bind", "fq_bind_launch", t.data_ptr(), r.data_ptr(),
                    out.data_ptr(), outer, n_in, n_out, n_half, inner,
                    kernels.stream(t))
+    if counter is not None:
+        kernels.count(counter)
     return out
 
 

@@ -8,7 +8,9 @@ current stream as ctypes.c_void_p; every C entry returns
 cudaGetLastError() and `launch` raises when it is not 0.
 
 `launches` counts, per wrapper, the calls that launched a kernel on the
-card. CPU tensors take the plain PyTorch versions and are not counted.
+card; a function built on K1's wrappers (eq tables, eq_fold, pc_bind, the
+ABC combination) also counts its launches under its own name. CPU tensors
+take the plain PyTorch versions and are not counted.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ _ENTRIES = {
                                                  _I64, _I32, _P, _P, _P, _P]),
     "p2_round_launch": ("sumcheck", [_P] * 6 + [_I64, _I64, _I64, _I64, _I32,
                                                 _I64, _I32, _P, _P, _P, _P]),
+    "pc_round_launch": ("sumcheck", [_P] * 9 + [_I64, _I64, _I64, _I32, _I32,
+                                                _I64, _I64, _I64, _I32, _P,
+                                                _P, _P, _P]),
 }
 
 launches: dict = {}

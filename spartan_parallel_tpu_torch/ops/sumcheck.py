@@ -1,18 +1,20 @@
-"""Sumcheck round kernels for the two R1CS sumchecks (K4).
+"""Sumcheck round kernels for the two R1CS sumchecks (K4, K5).
 
 Counterpart of the JAX package's ops/sumcheck.py (dense p1_*, p2_*,
-fold_chain). Same layout and semantics: phase-1 tables are (P, Q, X, 16)
-with q and x bit-reversed, phase-2 tables (P, W, Y, 16) with y
-bit-reversed; eq tables stay factored per axis. Buffers keep their size
-for the whole sumcheck: `n_half` is half the live length along the axis
-being bound, and the region past the live length is the field zero.
+fold_chain, and the q-size-classed eq_fold, pc_*). Same layout and
+semantics: phase-1 tables are (P, Q, X, 16) with q and x bit-reversed,
+phase-2 tables (P, W, Y, 16) with y bit-reversed; eq tables stay factored
+per axis. Buffers keep their size for the whole sumcheck: `n_half` is half
+the live length along the axis being bound, and the region past the live
+length is the field zero.
 
-`p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch csrc/sumcheck.cu
-on CUDA tensors (a step whose previous round bound the same axis runs as
-one fused kernel; at an axis change it binds through K1 and then
-evaluates). Binds go through K1 (ops/fq.bind). CPU tensors take the
-*_plain versions. Bound on the card by bytes (every live table entry
-read once per round), see csrc/sumcheck.cu.
+`p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch K4 and
+`pc_evals` / `pc_step` launch K5 (csrc/sumcheck.cu) on CUDA tensors: a
+step whose previous round bound the same axis runs as one fused kernel; at
+an axis change it binds through K1 and then evaluates. Binds, `eq_fold`
+and `pc_bind` go through K1 (ops/fq.py). CPU tensors take the *_plain
+versions. Bound on the card by bytes (every live table entry read once
+per round), see csrc/sumcheck.cu.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from . import fq, kernels
+from . import limbs as lb
 
 MODE_P = 1
 MODE_Q = 2
@@ -29,6 +32,10 @@ MODE_X = 4
 
 _P1_AXIS = {MODE_X: 2, MODE_Q: 1, MODE_P: 0}
 _P2_AXIS = {MODE_X: 2, MODE_W: 1, MODE_P: 0}
+# launch counts per table axis: the x (y) rounds keep the first slice's
+# names, the q, w and p rounds of the data-parallel proof count apart
+_P1_COUNTER = {2: "sc_p1_round", 1: "sc_p1_round_q", 0: "sc_p1_round_p"}
+_P2_COUNTER = {2: "sc_p2_round", 1: "sc_p2_round_w", 0: "sc_p2_round_p"}
 
 
 def rev_bits(x: int, size: int) -> int:
@@ -219,7 +226,7 @@ def _p1_launch(tp, tq, tx, B, C, D, n_half, mode, r=None, n_half_prev=None):
     else:
         nB = nC = nD = neq = tabs[0]
     part, out = _scratch(P * Q * X, dev)
-    kernels.launch("sc_p1_round", "p1_round_launch",
+    kernels.launch(_P1_COUNTER[axis], "p1_round_launch",
                    *(t.data_ptr() for t in tabs),
                    nB.data_ptr(), nC.data_ptr(), nD.data_ptr(),
                    neq.data_ptr(), P, Q, X, axis, int(n_half), int(bind),
@@ -246,8 +253,10 @@ def p1_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
         return p1_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev,
                              n_half, mode_prev, mode)
     if mode_prev == mode:
-        return _p1_launch(tp, tq, tx, B, C, D, int(n_half), mode, r_prev,
-                          int(n_half_prev))
+        # the plain step's compaction, which commutes with a bind along
+        # the same axis (a no-op on the prover's tables)
+        return _p1_launch(*_p1_compact(tp, tq, tx, B, C, D, mode),
+                          int(n_half), mode, r_prev, int(n_half_prev))
     tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev)
     tabs = _p1_compact(*tabs, mode)
     return p1_evals(*tabs, n_half, mode), tabs
@@ -273,7 +282,7 @@ def _p2_launch(ep, ABC, Z, n_half, mode, single_inst, r=None,
     nZ = torch.empty_like(tabs[2]) if bind else tabs[2]
     nep = torch.empty_like(tabs[0]) if bind and axis == 0 else tabs[0]
     part, out = _scratch(P * Wn * Y, Z.device)
-    kernels.launch("sc_p2_round", "p2_round_launch",
+    kernels.launch(_P2_COUNTER[axis], "p2_round_launch",
                    *(t.data_ptr() for t in tabs), nABC.data_ptr(),
                    nZ.data_ptr(), nep.data_ptr(), P, PB, Wn, Y, axis,
                    int(n_half), int(bind), r.data_ptr(), part.data_ptr(),
@@ -293,8 +302,173 @@ def p2_step(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
         return p2_step_plain(ep, ABC, Z, r_prev, n_half_prev, n_half,
                              mode_prev, mode, single_inst)
     if mode_prev == mode:
-        return _p2_launch(ep, ABC, Z, int(n_half), mode, single_inst,
-                          r_prev, int(n_half_prev))
+        return _p2_launch(*_p2_compact(ep, ABC, Z, mode), int(n_half), mode,
+                          single_inst, r_prev, int(n_half_prev))
     tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst)
     tabs = _p2_compact(*tabs, mode)
     return p2_evals(*tabs, n_half, mode, single_inst), tabs
+
+
+# --------------------------------------------------------------------------
+# Size-classed phase 1 (K5): instances sorted by decreasing num_proofs
+# partition into contiguous classes of equal Q_c, each with its own
+# (P_c, Q_c, X, 16) tables, q bit-reversed within the class. The class's
+# rows sit at the stride-S positions of the global q axis (S = Q_max / Q_c),
+# so its eq_q table is tq[::S] while it is active (the first log2(Q_c) q
+# rounds); afterwards it is inactive and its dense fold degenerates to
+# T' = (1 - r) T. The global eq tables are shared by every class, folded
+# once per round by `eq_fold`, and read-only in the class kernels.
+# --------------------------------------------------------------------------
+_PC_AXIS = {MODE_X: 2, MODE_Q: 1}
+
+
+def eq_fold(t: torch.Tensor, r: torch.Tensor, n_half: int) -> torch.Tensor:
+    """One bind of a shared eq table buffer (K1 fq_bind, counted apart)."""
+    return fq.bind(t, r, 0, int(n_half), counter="eq_fold")
+
+
+def _pc_slices(tp, tq, B, p0: int, S: int):
+    return tp[p0:p0 + B.shape[0]], tq[0:S * B.shape[1]:S]
+
+
+def _pc_inactive_tables(tq, B, C, D, n_half: int):
+    """An inactive class as a two-row q axis: the live row and a zero high
+    row, with eq_q (tq[0], tq[n_half]) of the folded global table."""
+    def two(t):
+        lo = t[:, :1, :1]
+        return torch.cat([lo, torch.zeros_like(lo)], 1)
+
+    return torch.stack([tq[0], tq[n_half]]), two(B), two(C), two(D)
+
+
+def pc_evals_plain(tp, tq, tx, B, C, D, n_half: int, mode: int, p0: int,
+                   S: int, active: bool):
+    """One class's (e0, e2, e3) as a (3, 16) Montgomery tensor. n_half is
+    the class's own for active rounds and the global one for inactive q
+    rounds (where it addresses the folded tq)."""
+    n_half = int(n_half)
+    tp_c, tq_c = _pc_slices(tp, tq, B, p0, S)
+    if mode == MODE_Q and not active:
+        tq2, B2, C2, D2 = _pc_inactive_tables(tq, B, C, D, n_half)
+        return p1_evals_plain(tp_c, tq2, tx[:1], B2, C2, D2, 1, MODE_Q)
+    return p1_evals_plain(tp_c, tq_c, tx[:B.shape[2]], B, C, D, n_half, mode)
+
+
+def pc_bind_plain(B, C, D, r, n_half: int, mode: int, active: bool):
+    """Class bind: fold (active) or (1 - r)-scale each of B, C, D."""
+    if mode == MODE_Q and not active:
+        one = lb.to_device(fq.ONE_MONT, B.device)
+        omr = fq.sub_plain(one, r.reshape(16))
+        return tuple(fq.mul_plain(t, omr) for t in (B, C, D))
+    return tuple(fq.bind_plain(t, r, _PC_AXIS[mode], int(n_half))
+                 for t in (B, C, D))
+
+
+def _pc_compact(B, C, D, mode: int, active: bool):
+    if mode != MODE_X and B.shape[2] > 1:
+        B, C, D = B[:, :, :1], C[:, :, :1], D[:, :, :1]
+    if mode == MODE_Q and not active and B.shape[1] > 1:
+        B, C, D = B[:, :1], C[:, :1], D[:, :1]
+    return tuple(t.contiguous() for t in (B, C, D))
+
+
+def pc_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
+                  mode_prev: int, mode: int, p0: int, S: int,
+                  active_prev: bool, active: bool):
+    tabs = pc_bind_plain(B, C, D, r_prev, n_half_prev, mode_prev,
+                         active_prev)
+    tabs = _pc_compact(*tabs, mode, active)
+    return pc_evals_plain(tp, tq, tx, *tabs, n_half, mode, p0, S,
+                          active), tabs
+
+
+def pc_bind(B, C, D, r, n_half: int, mode: int, active: bool):
+    """The class bind on the card: an active fold is K1's fq_bind (counted
+    as pc_bind), the inactive (1 - r) scale K1's fq_sub and fq_mul with a
+    broadcast scalar (counted as pc_bind_inactive)."""
+    if B.device.type == "cpu":
+        return pc_bind_plain(B, C, D, r, n_half, mode, active)
+    if mode == MODE_Q and not active:
+        one = lb.to_device(fq.ONE_MONT, B.device)
+        omr = fq.sub(one, r.reshape(16), counter="pc_bind_inactive")
+        return tuple(fq.mul(t, omr, counter="pc_bind_inactive")
+                     for t in (B, C, D))
+    return tuple(fq.bind(t, r, _PC_AXIS[mode], int(n_half),
+                         counter="pc_bind") for t in (B, C, D))
+
+
+def _pc_counter(mode: int, active: bool, S: int, fused: bool) -> str:
+    """Launch count of one form of K5; an active class read at q stride
+    S > 1 of the eq_q table counts apart (xs, qs)."""
+    if active:
+        form = ("x" if mode == MODE_X else "q") + ("s" if S > 1 else "")
+    else:
+        form = "qi"
+    return "sc_pc_round_" + form + ("_fused" if fused else "")
+
+
+def _pc_launch(tp, tq, tx, B, C, D, n_half, mode, p0, S, active, r=None,
+               n_half_prev=None):
+    bind = r is not None
+    if mode not in _PC_AXIS or (mode == MODE_X and not active):
+        raise ValueError("a class round binds x (active) or q")
+    if not active:  # one live entry per instance
+        B, C, D = (t[:, :1, :1] for t in (B, C, D))
+    Pc, Qn, Xn = B.shape[:3]
+    if C.shape != B.shape or D.shape != B.shape:
+        raise ValueError("class table shapes disagree")
+    if p0 + Pc > tp.shape[0] or Xn > tx.shape[0]:
+        raise ValueError("class tables outside the eq tables")
+    if active:
+        n_live = 2 * n_half * (S if mode == MODE_Q else 1)
+        if n_live > (tq.shape[0] if mode == MODE_Q else tx.shape[0]) or \
+                S * Qn > tq.shape[0]:
+            raise ValueError("class tables outside the eq tables")
+        if bind and 2 * n_half != n_half_prev:
+            raise ValueError("fused step binds the same axis: n_half_prev "
+                             "must be 2 * n_half")
+    elif n_half >= tq.shape[0]:
+        raise ValueError("n_half outside the eq_q table")
+    tabs = [t.contiguous() for t in (tp, tq, tx, B, C, D)]
+    r = r.reshape(16).contiguous() if bind else tabs[0]
+    kernels.require_cuda(*tabs, r)
+    if bind:
+        nB, nC, nD = (torch.empty_like(t) for t in tabs[3:])
+    else:
+        nB = nC = nD = tabs[0]
+    part, out = _scratch(Pc * Qn * Xn, B.device)
+    kernels.launch(_pc_counter(mode, active, S, bind), "pc_round_launch",
+                   *(t.data_ptr() for t in tabs),
+                   nB.data_ptr(), nC.data_ptr(), nD.data_ptr(), Pc, Qn, Xn,
+                   _PC_AXIS[mode], int(active), int(n_half), int(p0), int(S),
+                   int(bind), r.data_ptr(), part.data_ptr(), out.data_ptr(),
+                   kernels.stream(B))
+    return out, (nB, nC, nD) if bind else None
+
+
+def pc_evals(tp, tq, tx, B, C, D, n_half: int, mode: int, p0: int, S: int,
+             active: bool):
+    if B.device.type == "cpu":
+        return pc_evals_plain(tp, tq, tx, B, C, D, n_half, mode, p0, S,
+                              active)
+    return _pc_launch(tp, tq, tx, B, C, D, int(n_half), mode, p0, S,
+                      active)[0]
+
+
+def pc_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
+            mode_prev: int, mode: int, p0: int, S: int, active_prev: bool,
+            active: bool):
+    """The class's previous-round bind fused with this round's
+    evaluations; tp/tq/tx are the current global eq tables (already
+    folded for this round by eq_fold). Returns (evals, (B, C, D))."""
+    if B.device.type == "cpu":
+        return pc_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev,
+                             n_half, mode_prev, mode, p0, S, active_prev,
+                             active)
+    if mode_prev == mode and active_prev == active:
+        return _pc_launch(tp, tq, tx, *_pc_compact(B, C, D, mode, active),
+                          int(n_half), mode, p0, S, active, r_prev,
+                          int(n_half_prev))
+    tabs = pc_bind(B, C, D, r_prev, n_half_prev, mode_prev, active_prev)
+    tabs = _pc_compact(*tabs, mode, active)
+    return pc_evals(tp, tq, tx, *tabs, n_half, mode, p0, S, active), tabs

@@ -109,6 +109,78 @@ def test_sumcheck_kernels(dev):
                 sck.p2_evals_plain(ep, ABC, Z, 1, mode, single))
 
 
+def test_sumcheck_dp_modes(dev):
+    """K4 in the q and p rounds of phase 1 and the w and p rounds of
+    phase 2 with one ABC table per instance (fused steps included)."""
+    tp, tq, tx = (rand_field((n,), dev, 50 + n) for n in (4, 8, 1))
+    B, C, D = (rand_field((4, 8, 1), dev, 60 + i) for i in range(3))
+    r = rand_field((), dev, 70)
+    # the prover's p rounds come after q is bound, on (P, 1, 1) tables; a
+    # step given the unbound q axis collapses it as the plain step does
+    for mode, nh_prev, nh, q in ((sck.MODE_Q, 4, 2, 8), (sck.MODE_P, 2, 1, 1),
+                                 (sck.MODE_P, 2, 1, 8)):
+        tabs = (tp, tq[:q], tx, B[:, :q], C[:, :q], D[:, :q])
+        ev, got = sck.p1_step(*tabs, r, nh_prev, nh, mode, mode)
+        ev2, want = sck.p1_step_plain(*tabs, r, nh_prev, nh, mode, mode)
+        assert torch.equal(ev, ev2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ep = rand_field((4,), dev, 71)
+    ABC, Z = rand_field((4, 4, 4), dev, 72), rand_field((4, 4, 4), dev, 73)
+    # the w rounds come after y is bound, the p rounds after w and y
+    for mode, w, y in ((sck.MODE_X, 4, 4), (sck.MODE_W, 4, 1),
+                       (sck.MODE_P, 1, 1), (sck.MODE_P, 4, 4)):
+        tabs = (ep, ABC[:, :w, :y], Z[:, :w, :y])
+        ev, got = sck.p2_step(*tabs, r, 2, 1, mode, mode, False)
+        ev2, want = sck.p2_step_plain(*tabs, r, 2, 1, mode, mode, False)
+        assert torch.equal(ev, ev2)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_classed_sumcheck_kernel(dev):
+    """K5 (one q-size class at p0 = 1, q stride S = 2 of the shared eq
+    tables) in its active-x, active-q and inactive-q forms, fused and
+    unfused, the transitions between them, pc_bind and eq_fold."""
+    X, Q = sck.MODE_X, sck.MODE_Q
+    tp, tq, tx = (rand_field((n,), dev, 80 + n) for n in (4, 8, 16))
+    T = tuple(rand_field((2, 4, 16), dev, 90 + i) for i in range(3))
+    r = rand_field((), dev, 99)
+    kw = dict(p0=1, S=2)
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and all(
+            torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+    assert torch.equal(sck.pc_evals(tp, tq, tx, *T, 8, X, active=True, **kw),
+                       sck.pc_evals_plain(tp, tq, tx, *T, 8, X, active=True,
+                                          **kw))
+    # (mode_prev, active_prev, n_half_prev, mode, active, n_half)
+    for step in ((X, True, 8, X, True, 4), (X, True, 1, Q, True, 2),
+                 (Q, True, 1, Q, False, 2)):
+        args = (tp, tq, tx, *T, r, step[2], step[5], step[0], step[3])
+        got = sck.pc_step(*args, active_prev=step[1], active=step[4], **kw)
+        assert same(got, sck.pc_step_plain(*args, active_prev=step[1],
+                                           active=step[4], **kw))
+    Tq = tuple(t[:, :, :1].contiguous() for t in T)
+    for active, nh in ((True, 2), (False, 1)):
+        assert torch.equal(
+            sck.pc_evals(tp, tq, tx, *Tq, nh, Q, active=active, **kw),
+            sck.pc_evals_plain(tp, tq, tx, *Tq, nh, Q, active=active, **kw))
+    # fused q rounds, the first on tables whose x axis is not collapsed
+    fused = ((T, True, 2, 1), (Tq, True, 2, 1),
+             (tuple(t[:, :1] for t in Tq), False, 2, 1))
+    for tabs, active, nh_prev, nh in fused:
+        args = (tp, tq, tx, *tabs, r, nh_prev, nh, Q, Q)
+        assert same(sck.pc_step(*args, active_prev=active, active=active,
+                                **kw),
+                    sck.pc_step_plain(*args, active_prev=active,
+                                      active=active, **kw))
+    for active in (True, False):
+        got = sck.pc_bind(*Tq, r, 2, Q, active)
+        want = sck.pc_bind_plain(*Tq, r, 2, Q, active)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(sck.eq_fold(tq, r, 4), fq.bind_plain(tq, r, 0, 4))
+
+
 def test_nizk_card_matches_cpu(dev):
     from spartan_parallel_tpu_torch import serialization as ser
     from spartan_parallel_tpu_torch.models.nizk import NIZK, NIZKGens
@@ -126,4 +198,40 @@ def test_nizk_card_matches_cpu(dev):
                            RandomTape(b"proof", seed=b"\x05" * 32), device=d)
         proof.verify(inst, im[0][0], gens, Transcript(b"t"), device=d)
         out.append(ser.serialize(proof, "NIZK"))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("num_proofs", [[8, 2, 1], [2, 2, 2, 2]])
+def test_dp_proof_card_matches_cpu(dev, num_proofs):
+    """The data-parallel R1CSProof at 16 x 16 x 4, classed (skewed counts)
+    and dense (uniform counts): card and CPU bytes agree, and it verifies."""
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.models import r1csproof as rp
+    from spartan_parallel_tpu_torch.models.r1csinstance import (
+        produce_synthetic_r1cs,
+    )
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    P, qmax = len(num_proofs), max(num_proofs)
+    out = []
+    for d in (dev, "cpu"):
+        inst, vm, im = produce_synthetic_r1cs(P, num_proofs, 16, 16, 4,
+                                              seed=13, device=d)
+        io = [[[1] + list(v) + [0] * (15 - len(v)) for v in im[p]]
+              for p in range(P)]
+        secs = [rp.ProverWitnessSecInfo.from_scalars([16] * P, m, d)
+                for m in (vm, io)]
+        gens = rp.R1CSGens(b"gpu_dp", 16, qmax * 16)
+        proof, r = rp.R1CSProof.prove(
+            P, qmax, num_proofs, 16, [16] * P, secs, inst, gens,
+            Transcript(b"t"), RandomTape(b"proof", seed=b"\x0b" * 32), d)
+        comms = [[s.poly_w[p].commit(gens.gens_pc, None)[0]
+                  for p in range(P)] for s in secs]
+        _, bound = inst.multi_evaluate_bound_rp(r[0], r[2], r[3], device=d)
+        views = [rp.VerifierWitnessSecInfo(num_proofs, [16] * P, c)
+                 for c in comms]
+        assert proof.verify(P, qmax, num_proofs, 16, views, 16, gens, bound,
+                            Transcript(b"t"), d) == r
+        out.append(ser.serialize(proof, "R1CSProof"))
     assert out[0] == out[1]

@@ -126,7 +126,9 @@ def test_device_rule():
     else:
         with pytest.raises(RuntimeError):
             tdevice.resolve()
-        from spartan_parallel_tpu_torch import NIZKGens
+        from spartan_parallel_tpu_torch import NIZKGens, ProverWitnessSecInfo
 
         with pytest.raises(RuntimeError):
             NIZKGens(16, 16)
+        with pytest.raises(RuntimeError):
+            ProverWitnessSecInfo.from_scalars([1], [[[1]]])

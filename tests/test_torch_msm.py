@@ -50,7 +50,7 @@ def test_codec_matches_jax():
 
 
 def test_point_add_double_match_jax():
-    pts = points(5)
+    pts = points(3)
     p, q = pts, pts[::-1]
     assert compressed_port(curve.point_add(enc_port(p), enc_port(q))) == \
         compressed_jax(jcurve.point_add(enc_jax(p), enc_jax(q)))
@@ -59,10 +59,10 @@ def test_point_add_double_match_jax():
 
 
 def test_fold_points_matches_jax():
-    pts = points(3)
+    pts = points(2)  # one pair of two random points
     kl, kr = rand_scalar(), rand_scalar()
-    got = curve.fold_points(enc_port(pts[:2]), enc_port(pts[2:]), kl, kr)
-    want = jcurve.fold_points(enc_jax(pts[:2]), enc_jax(pts[2:]), kl, kr)
+    got = curve.fold_points(enc_port(pts[:1]), enc_port(pts[1:2]), kl, kr)
+    want = jcurve.fold_points(enc_jax(pts[:1]), enc_jax(pts[1:2]), kl, kr)
     assert compressed_port(got) == compressed_jax(want)
 
 

@@ -19,17 +19,24 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
+from .torch_shared import shared_result
+
 SEED = b"\x05" * 32
 
 
 @pytest.fixture(scope="module")
-def jax_run():
+def jax_run(tmp_path_factory):
     inst, vm, im = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4)
     gens = jnizk.NIZKGens(16, 16)
-    proof = jnizk.NIZK.prove(inst, vm[0][0], im[0][0], gens,
-                             JTranscript(b"nizk_example"),
-                             JTape(b"proof", seed=SEED))
-    return inst, gens, im[0][0], jser.serialize(proof, "NIZK")
+
+    def prove():
+        proof = jnizk.NIZK.prove(inst, vm[0][0], im[0][0], gens,
+                                 JTranscript(b"nizk_example"),
+                                 JTape(b"proof", seed=SEED))
+        return jser.serialize(proof, "NIZK")
+
+    return inst, gens, im[0][0], shared_result(tmp_path_factory,
+                                               "jax_nizk_proof", prove)
 
 
 @pytest.fixture(scope="module")

@@ -98,3 +98,77 @@ def test_phase2_round_matches_jax(mode_prev, mode, nh_prev, nh, single):
 def test_rev_perm_matches_jax():
     for n in (1, 2, 8, 64):
         assert np.array_equal(jsck.rev_perm(n), tsck.rev_perm(n))
+
+
+# (mode, active, S, p0): the three q-size classes of tests/test_r1cs.py's
+# q-class proof (16 x 16 x 4, num_proofs [8, 2, 1]: eq tables tp 4, tq 8,
+# tx 16) in a round where that proof runs them, so the JAX side reuses the
+# compiles of that test when the persistent XLA cache holds them
+PC = [(jsck.MODE_X, True, 4, 1), (jsck.MODE_Q, True, 1, 0),
+      (jsck.MODE_Q, False, 8, 2)]
+
+
+@pytest.mark.parametrize("mode,active,S,p0", PC)
+def test_classed_round_matches_jax(mode, active, S, p0):
+    """K5's plain path (pc_evals, pc_bind, the fused pc_step) and the
+    shared eq_fold against the JAX package's fused pc_step (its pc_bind,
+    then pc_evals: a same-mode step compacts nothing) and eq_fold."""
+    tp, tq, tx = tab(4), tab(8), tab(16)
+    qc = 8 // S if active else 1
+    xc = 16 if mode == jsck.MODE_X else 1
+    T = [tab(1, qc, xc) for _ in range(3)]
+    r = tab(1)
+    # n_half: the class's own when active, the global q one when inactive
+    nh_prev, nh = ((8, 4) if mode == jsck.MODE_X else (qc // 2, qc // 4)) \
+        if active else (4, 2)
+    js = [t[0] for t in (tp, tq, tx, *T)]
+    ts = [t[1] for t in (tp, tq, tx, *T)]
+    jev, jtabs = jsck.pc_step(*js, r[0][0], np.uint32(nh_prev),
+                              np.uint32(nh), mode_prev=mode, mode=mode,
+                              p0=p0, S=S, active_prev=active, active=active)
+    tabs = tsck.pc_bind(*ts[3:], r[1][0], nh_prev, mode, active)
+    assert all_same(jtabs, tabs)
+    assert same(jev, tsck.pc_evals(*ts[:3], *tabs, nh, mode, p0, S, active))
+    tev, ttabs = tsck.pc_step(*ts, r[1][0], nh_prev, nh, mode_prev=mode,
+                              mode=mode, p0=p0, S=S, active_prev=active,
+                              active=active)
+    assert same(jev, tev)
+    assert all_same(jtabs, ttabs)
+    eq = tx if mode == jsck.MODE_X else tq
+    assert same(jsck.eq_fold(eq[0], r[0][0], np.uint32(nh_prev)),
+                tsck.eq_fold(eq[1], r[1][0], nh_prev))
+
+
+def test_dense_pqx_binds_match_jax():
+    """DensePolynomialPqx (custom_mlpoly.py): the q bind and the full
+    evaluation at (rp, rq, rw, rx) on a (P, Q, W, Y) = (2, 4, 2, 4) table
+    with ragged live regions."""
+    from spartan_parallel_tpu.core.field import Scalar as JScalar
+    from spartan_parallel_tpu.models.custom_mlpoly import (
+        DensePolynomialPqx as JPqx,
+    )
+    from spartan_parallel_tpu_torch.core.field import Scalar
+    from spartan_parallel_tpu_torch.models.custom_mlpoly import (
+        DensePolynomialPqx,
+    )
+
+    Z = tab(2, 4, 2, 4)
+    rs = [int.from_bytes(rng.bytes(40), "little") % L for _ in range(6)]
+    rp, rq, rw, rx = rs[:1], rs[1:3], rs[3:4], rs[4:6]
+    j = JPqx(Z[0], [4, 2], [4, 2])
+    t = DensePolynomialPqx(Z[1], [4, 2], [4, 2])
+    ev_j = j.evaluate(*([JScalar(v) for v in g] for g in (rp, rq, rw, rx)))
+    ev_t = t.evaluate(*([Scalar(v) for v in g] for g in (rp, rq, rw, rx)))
+    assert int(ev_j) == int(ev_t)
+    j.bound_poly_vars_rq([JScalar(v) for v in rq])
+    t.bound_poly_vars_rq([Scalar(v) for v in rq])
+    assert same(j.Zm, t.Zm) and j.num_proofs == t.num_proofs == [1, 1]
+    # natural-order lists in, bit-reversed storage, flattening back out
+    z = [[[[int.from_bytes(rng.bytes(40), "little") % L for _ in range(ni)]
+           for _ in range(2)] for _ in range(q)]
+         for q, ni in ((4, 4), (2, 2))]
+    j = JPqx.new_rev(z, [4, 2], 4, [4, 2], 4)
+    t = DensePolynomialPqx.new_rev(z, [4, 2], 4, [4, 2], 4, "cpu")
+    assert same(j.Zm, t.Zm)
+    assert int(j.index(1, 1, 1, 1)) == int(t.index(1, 1, 1, 1))
+    assert same(j.to_dense_poly().Zm, t.to_dense_poly().Zm)
