@@ -5,7 +5,7 @@
     python3 chip_smoke.py --log-cons 16   # a smaller NIZK in phase 4
 
 Phases, each printing one JSON line:
-  1. the card (nvidia-smi name and power limit) and the build of the four
+  1. the card (nvidia-smi name and power limit) and the build of the five
      CUDA kernel sources (csrc/*.cu, one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (exact equality; points after ristretto
@@ -13,13 +13,15 @@ Phases, each printing one JSON line:
      the least time the card could take (bound_ms): the NIZK's kernels at
      2^20, and the data-parallel proof's (K4's x, q, w and p rounds, K5's
      class rounds, eq_fold, pc_bind, the ABC combination) at the shapes of
-     the runs of phases 5 and 6;
+     the runs of phases 5 and 6, and SPARK's (K6's product-tree layer and
+     cubic rounds, the pt_fold bind, the hash layer) at the shapes of the
+     2^20 SNARK of phase 7;
   3. fixed tapes, proved on the card and on the CPU, whose serialized
      proofs must be identical and verify: the NIZK at 2^10 constraints x
      2^10 variables x 10 inputs (a tampered proof must fail), and the
      data-parallel R1CSProof at 16 x 16 x 4 with P = 3 instances executed
      [8, 2, 1] times (the classed layout) and P = 4 executed [2, 2, 2, 2]
-     times (the dense layout);
+     times (the dense layout), and the SpartanSNARK (SPARK) at 16 x 16 x 4;
   4. the NIZK at 2^20 x 2^20 x 10 inputs (the upstream README instance)
      on the card: prove, verify, reject a tampered proof, per-stage times,
      proof bytes, peak memory and each kernel's launches;
@@ -28,9 +30,15 @@ Phases, each printing one JSON line:
      variables x 10 inputs, executed [512, 128, 32, 32] times (the
      q-size-classed prover), on the card: witness commits, prove, verify,
      reject a tampered proof, with the same report;
-  6. the same with uniform counts [256] x 4 (the dense prover).
-Each of phases 4-6 sets the launch counts to 0 before it and reads them
-after; every kernel row must have been launched on its path. Then the
+  6. the same with uniform counts [256] x 4 (the dense prover);
+  7. the upstream single-instance SNARK with SPARK on the card, encode ->
+     prove -> verify, at BASELINE config 2 (2^16 x 2^16 x 10 inputs) and
+     at the upstream README instance (2^20 x 2^20 x 10 inputs, 2^20
+     non-zeros per matrix): upstream's stage Timers, the SAT and eval
+     proof bytes beside upstream's, peak memory, launches, and a proof
+     with one claimed evaluation changed must be rejected.
+Each of phases 4-7 sets the launch counts to 0 before each run and reads
+them after; every kernel row must have been launched on its path. Then the
 kernel table as one JSON line, the card line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero before that.
 
@@ -297,6 +305,7 @@ def check_kernels(log_n: int, dev, reps: int):
            lambda: p2(sck.p2_step), lambda: p2(sck.p2_step_plain), cmp_step,
            8 * n * E, (2 * n + p2_muls(n // 2, 2)) * IMAD_FQ_MUL)
     check_dp_kernels(dev, gen, record, cmp_step, E)
+    check_spark_kernels(log_n, dev, gen, record, E)
     return rows, paths
 
 
@@ -432,6 +441,73 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
            lambda: rp._abc_comb_dev(abc, rabc, live, yperm),
            lambda: abc_comb_plain(abc, rabc, live, yperm),
            field_err, 4 * n * E, 3 * n * IMAD_FQ_MUL, path="dp_uniform")
+
+
+def check_spark_kernels(log_n: int, dev, gen, record, E):
+    """SPARK's kernels at the shapes of the 2^log_n SNARK of phase 7 (the
+    upstream instance at log_n = 20): 12 ops circuits of 2^log_n leaves
+    (their first layer and first round at n = 2^(log_n - 1) per half), 6
+    dot-product circuits of 2^(log_n - 1), 4 memory circuits of
+    2^(log_n + 1) cells (first round at n = 2^log_n). Bytes: each input
+    read once, each output written once; operations: the field products
+    (6 per pair for a cubic round's e0, e2, e3)."""
+    from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
+    from spartan_parallel_tpu_torch.ops import product as pk
+
+    src = "spartan_parallel_tpu/models/product_tree.py"
+    h = 1 << (log_n - 2)
+    n = 2 * h
+
+    def pair_err(got, want):
+        return max(field_err(g, w) for g, w in zip(got, want))
+
+    left, right = (rand_field((12, n), gen, dev) for _ in range(2))
+    record("pt_layer_mul", "product.cu", f"{src}:42",
+           lambda: pk.layer_mul(left, right),
+           lambda: pk.layer_mul_plain(left, right), pair_err,
+           3 * 12 * n * E, 12 * n * IMAD_FQ_MUL, path="snark")
+    C = rand_field((n,), gen, dev)
+    record("pt_cubic_round", "product.cu", f"{src}:102",
+           lambda: pk.cubic_evals(left, right, C),
+           lambda: pk.cubic_evals_plain(left, right, C), field_err,
+           (2 * 12 * n + n + 12 * 3) * E, 6 * 12 * h * IMAD_FQ_MUL,
+           path="snark")
+    r = rand_field((), gen, dev)
+    record("pt_fold", "fq.cu", f"{src}:136",
+           lambda: pk.fold(left, r), lambda: pk.fold_plain(left, r),
+           field_err, (12 * n + 12 * h + 1) * E, 12 * h * IMAD_FQ_MUL,
+           path="snark")
+    del left, right
+    A, B, Cs = (rand_field((6, n), gen, dev) for _ in range(3))
+    record("pt_cubic_round_seq", "product.cu", f"{src}:119",
+           lambda: pk.cubic_evals(A, B, Cs),
+           lambda: pk.cubic_evals_plain(A, B, Cs), field_err,
+           (3 * 6 * n + 6 * 3) * E, 6 * 6 * h * IMAD_FQ_MUL, path="snark")
+    del A, B, Cs
+    A, B = (rand_field((4, 2 * n), gen, dev) for _ in range(2))
+    C = rand_field((2 * n,), gen, dev)
+    record("pt_cubic_round_mem", "product.cu", f"{src}:102",
+           lambda: pk.cubic_evals(A, B, C),
+           lambda: pk.cubic_evals_plain(A, B, C), field_err,
+           (2 * 4 * 2 * n + 2 * n + 4 * 3) * E, 6 * 4 * n * IMAD_FQ_MUL,
+           path="snark", counter="pt_cubic_round")
+    del A, B, C
+    # the hash layer of 2^20 read timestamps: ts r^2 + val r + addr - rm
+    addr, val, ts = (rand_field((2 * n,), gen, dev) for _ in range(3))
+    ch = rand_field((3,), gen, dev)
+    record("hash_poly", "fq.cu",
+           "spartan_parallel_tpu/models/sparse_mlpoly.py:289",
+           lambda: sp._hash_poly(addr, val, ts, *ch),
+           lambda: hash_poly_plain(addr, val, ts, *ch), field_err,
+           (4 * 2 * n + 3) * E, 2 * 2 * n * IMAD_FQ_MUL, path="snark")
+
+
+def hash_poly_plain(addr, val, ts, rh2, rh, rm):
+    """models/sparse_mlpoly.py _hash_poly from K1's plain versions."""
+    from spartan_parallel_tpu_torch.ops import fq
+
+    h = fq.add_plain(fq.mul_plain(ts, rh2), fq.mul_plain(val, rh))
+    return fq.sub_plain(fq.add_plain(h, addr), rm)
 
 
 def eq_evals_plain(rs, ell: int):
@@ -583,6 +659,93 @@ def dp_run(num_proofs, log_cons: int, num_inputs: int, device,
             "compressed": ser.compressed_size(proof, "R1CSProof")}
 
 
+def snark_run(log_cons: int, num_inputs: int, device, seed_tape: bool):
+    """The upstream SNARK (models/snark_single.py) on the synthetic
+    instance of 2^log_cons constraints x 2^log_cons variables per witness
+    section (nnz = 2^log_cons per matrix): set-up, encode, prove,
+    verify."""
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.models.r1csinstance import (
+        produce_synthetic_r1cs,
+    )
+    from spartan_parallel_tpu_torch.models.snark_single import (
+        SpartanSNARK,
+        SpartanSNARKGens,
+    )
+    from spartan_parallel_tpu_torch.utils import timer
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    n = 1 << log_cons
+    t0 = time.perf_counter()
+    inst, vars_mat, inputs_mat = produce_synthetic_r1cs(
+        1, [1], n, n, num_inputs, device=device)
+    nnz = max(m.get_num_nz_entries()
+              for m in inst.A_list + inst.B_list + inst.C_list)
+    gens = SpartanSNARKGens(n, n, nnz)
+    setup_s = time.perf_counter() - t0
+    timer.records.clear()
+    t0 = time.perf_counter()
+    comm, decomm = SpartanSNARK.encode(inst, gens, device=device)
+    encode_s = time.perf_counter() - t0
+    tape = RandomTape(b"proof", seed=b"\x09" * 32) if seed_tape else None
+    t0 = time.perf_counter()
+    proof = SpartanSNARK.prove(inst, comm, decomm, vars_mat[0][0],
+                               inputs_mat[0][0], gens,
+                               Transcript(b"snark_example"), tape,
+                               device=device)
+    prove_s = time.perf_counter() - t0
+    del decomm
+    t0 = time.perf_counter()
+    proof.verify(comm, inputs_mat[0][0], gens, Transcript(b"snark_example"),
+                 device=device)
+    verify_s = time.perf_counter() - t0
+    stages = {k: timer.records.get(k) for k in (
+        "SNARK::encode", "SNARK::prove", "R1CSProof::prove",
+        "prove_vec_mult",
+        "prove_sc_phase_one", "prove_abc_gen", "prove_sc_phase_two",
+        "polyeval", "eval_sparse_polys",
+        "R1CSEvalProof::prove", "commit_nondet_witness",
+        "build_layered_network", "evalproof_layered_network",
+        "SNARK::verify", "verify_sat_proof", "verify_eval_proof",
+        "verify_prod_proof", "verify_hash_proof")}
+    raw = ser.serialize(proof, "SpartanSNARK")
+    return {"comm": comm, "gens": gens, "inputs": inputs_mat[0][0],
+            "bytes": raw,
+            "comm_bytes": ser.serialize(comm, "R1CSCommitment"),
+            "proof_bytes": {
+                "sat": len(ser.serialize(proof.r1cs_sat_proof, "R1CSProof")),
+                "eval": len(ser.serialize(proof.r1cs_eval_proof,
+                                          "R1CSEvalProof")),
+                "total": len(raw)},
+            "proof_bytes_compressed": {
+                "sat": ser.compressed_size(proof.r1cs_sat_proof,
+                                           "R1CSProof"),
+                "eval": ser.compressed_size(proof.r1cs_eval_proof,
+                                            "R1CSEvalProof"),
+                "total": ser.compressed_size(proof, "SpartanSNARK")},
+            "setup_s": setup_s, "encode_s": encode_s, "prove_s": prove_s,
+            "verify_s": verify_s, "stages_s": stages}
+
+
+def expect_reject_snark(run, device) -> None:
+    """A SNARK whose first claimed evaluation (A at (rx, ry)) is off by
+    one must be rejected."""
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.core.field import Scalar
+    from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    bad = ser.deserialize(run["bytes"], "SpartanSNARK")
+    bad.inst_evals[0] = bad.inst_evals[0] + Scalar(1)
+    try:
+        bad.verify(run["comm"], run["inputs"], run["gens"],
+                   Transcript(b"snark_example"), device=device)
+    except ProofVerifyError:
+        return
+    raise AssertionError("a SNARK with a wrong claimed evaluation verified")
+
+
 def expect_reject(run, device=None) -> None:
     """Swap two round commitments of a proof's phase-1 sumcheck: its
     verifier must reject it. `run` is a NIZK run (device given) or a
@@ -663,6 +826,16 @@ def main() -> int:
               "proof_bytes": len(dp_card["bytes"]), "verified": True})
         if not same:
             raise AssertionError("card and CPU data-parallel proofs differ")
+    sn_card = snark_run(4, 4, dev, seed_tape=True)
+    sn_cpu = snark_run(4, 4, "cpu", seed_tape=True)
+    same = (sn_card["comm_bytes"], sn_card["bytes"]) == \
+        (sn_cpu["comm_bytes"], sn_cpu["bytes"])
+    expect_reject_snark(sn_card, dev)
+    emit({"phase": "snark_fixed_tape", "log_cons": 4, "num_inputs": 4,
+          "bytes_identical": same, "proof_bytes": len(sn_card["bytes"]),
+          "verified": True, "tamper_rejected": True})
+    if not same:
+        raise AssertionError("card and CPU SNARKs differ")
 
     counts = {}
     torch.cuda.reset_peak_memory_stats()
@@ -700,6 +873,26 @@ def main() -> int:
               "proof_bytes": len(run["bytes"]),
               "proof_bytes_compressed": run["compressed"],
               "stages_s": run["stages_s"],
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "launches": counts[path], "tamper_rejected": True})
+        del run
+    # the upstream SNARK with SPARK: BASELINE config 2, then the upstream
+    # README instance, whose launches the K6 rows report
+    for path, log_cons in (("snark16", 16), ("snark", 20)):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_counts()
+        run = snark_run(log_cons, 10, dev, seed_tape=False)
+        counts[path] = dict(kernels.launches)
+        expect_reject_snark(run, dev)
+        emit({"phase": "snark", "log_cons": log_cons, "num_inputs": 10,
+              "nnz_per_matrix": 1 << log_cons, "card": card,
+              "setup_s": run["setup_s"], "encode_s": run["encode_s"],
+              "prove_s": run["prove_s"], "verify_s": run["verify_s"],
+              "stages_s": run["stages_s"],
+              "proof_bytes": run["proof_bytes"],
+              "proof_bytes_compressed": run["proof_bytes_compressed"],
+              "upstream_compressed_bytes_2_20": {
+                  "sat": 47024, "eval": 133720, "total": 141768},
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "launches": counts[path], "tamper_rejected": True})
         del run

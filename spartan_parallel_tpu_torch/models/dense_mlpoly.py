@@ -1,9 +1,9 @@
 """Dense multilinear polynomials + the Hyrax-style PCS.
 
 Reference: src/dense_mlpoly.rs (DensePolynomial:20, EqPolynomial:60,
-PolyCommitment:45, PolyEvalProof:428). The protocol schedule (transcript
-labels, L/R factoring, batched-opening RLC) is the JAX package's, byte for
-byte; the tensors are PyTorch:
+IdentityPolynomial:133, PolyCommitment:45, PolyEvalProof:428). The
+protocol schedule (transcript labels, L/R factoring, batched-opening RLC)
+is the JAX package's, byte for byte; the tensors are PyTorch:
 
   * evaluation tables are (n, 16) int32 Montgomery limb tensors on the
     caller's device (ops/fq.py, K1);
@@ -21,7 +21,7 @@ from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import fq
 from ..ops import limbs as lb
-from .commitments import commit_rows_device
+from .commitments import commit_rows_device, commit_scalar
 from .sigma import DotProductProofGens, DotProductProofLog
 
 _ZERO = Scalar.zero()
@@ -124,6 +124,21 @@ class EqPolynomial:
         )
 
 
+class IdentityPolynomial:
+    """Evaluates to the integer index (dense_mlpoly.rs:133-152)."""
+
+    def __init__(self, size_point: int):
+        self.size_point = size_point
+
+    def evaluate(self, r) -> Scalar:
+        assert len(r) == self.size_point
+        acc = _ZERO
+        n = len(r)
+        for i, ri in enumerate(r):
+            acc = acc + Scalar(1 << (n - i - 1)) * ri
+        return acc
+
+
 # --------------------------------------------------------------------------
 # DensePolynomial
 # --------------------------------------------------------------------------
@@ -151,6 +166,42 @@ class DensePolynomial:
 
     def get_num_vars(self) -> int:
         return self.num_vars
+
+    def clone(self) -> "DensePolynomial":
+        return DensePolynomial(self.Zm)
+
+    def __getitem__(self, i: int) -> Scalar:
+        return mont_to_scalar(self.Zm[i])
+
+    def to_scalars(self) -> list:
+        return mont_to_scalars(self.Zm)
+
+    def split(self, idx: int):
+        return (DensePolynomial(self.Zm[:idx]),
+                DensePolynomial(self.Zm[idx:2 * idx]))
+
+    def bound_poly_var_top(self, r: Scalar) -> None:
+        """Bind the first variable (the table's halves) to r (K1)."""
+        h = len(self) // 2
+        rm = scalars_to_mont([r], self.Zm.device)[0]
+        self.Zm = fq.bind(self.Zm, rm, 0, h, h)
+        self.num_vars -= 1
+
+    def bound_poly_var_bot(self, r: Scalar) -> None:
+        """Bind the last variable (adjacent pairs) to r (K1)."""
+        rm = scalars_to_mont([r], self.Zm.device)[0]
+        pairs = self.Zm.reshape(-1, 2, 16)
+        self.Zm = fq.bind(pairs, rm, 1, 1, 1).reshape(-1, 16)
+        self.num_vars -= 1
+
+    def extend(self, other: "DensePolynomial") -> None:
+        assert len(self) == len(other)
+        self.Zm = torch.cat([self.Zm, other.Zm])
+        self.num_vars += 1
+
+    @staticmethod
+    def merge(polys) -> "DensePolynomial":
+        return DensePolynomial(torch.cat([p.Zm for p in polys]))
 
     def bound(self, L) -> torch.Tensor:
         """L*Z vector-matrix product -> (R_size, 16) Montgomery
@@ -268,6 +319,13 @@ class PolyEvalProof:
         L, R = EqPolynomial(list(r)).compute_factored_evals(device)
         C_LZ = multiscalar_mul(L, comm.decompress()).compress()
         self.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zr)
+
+    def verify_plain(self, gens: PolyCommitmentGens, transcript, r,
+                     Zr: Scalar, comm: PolyCommitment, device) -> None:
+        """verify against a plain evaluation Zr (committed with a zero
+        blind)."""
+        C_Zr = commit_scalar(Zr, _ZERO, gens.gens.gens_1).compress()
+        self.verify(gens, transcript, r, C_Zr, comm, device)
 
     # --- batched opening: many instances, (rq, ry) trimmed per size ------
     # One dot-product proof per distinct (num_proofs, num_inputs) pair;

@@ -27,8 +27,7 @@ from ..ops import limbs as lb
 from ..utils.errors import ProofVerifyError
 from ..utils.random_tape import RandomTape
 from ..utils.timer import Timer
-from .dense_mlpoly import DensePolynomial, EqPolynomial, PolyCommitment, \
-    log2
+from .dense_mlpoly import EqPolynomial, PolyCommitment, log2
 from .r1csproof import (
     ProverWitnessSecInfo,
     R1CSGens,
@@ -78,6 +77,21 @@ def _io_poly_and_comm(num_vars: int, inputs, gens_pc, device):
     return Zm, comm
 
 
+def _io_section(num_vars: int, inputs, gens_pc, device):
+    """The public io witness section [1, inputs, 0...] and its zero-blind
+    commitment: the sparse fast path where it applies, else the dense
+    commit."""
+    fast = _io_poly_and_comm(num_vars, inputs, gens_pc, device)
+    if fast is not None:
+        Zm, comm = fast
+        return ProverWitnessSecInfo.from_tensors(
+            [num_vars], [Zm.reshape(1, num_vars, 16)]), comm
+    sec = ProverWitnessSecInfo.from_scalars(
+        [num_vars], [[_io_sec(num_vars, inputs)]], device)
+    comm, _ = sec.poly_w[0].commit(gens_pc, None)
+    return sec, comm
+
+
 class NIZK:
     __slots__ = ("r1cs_sat_proof", "comm_vars", "r")
 
@@ -122,17 +136,8 @@ class NIZK:
         comm_vars.append_to_transcript(b"poly_commitment", transcript)
 
         # witness sec 1: public io (deterministic zero-blind commitment)
-        fast = _io_poly_and_comm(num_vars, inputs,
-                                 gens.gens_r1cs_sat.gens_pc, dev)
-        if fast is not None:
-            Zm_io, comm_io = fast
-            io_sec = ProverWitnessSecInfo.from_tensors(
-                [num_vars], [Zm_io.reshape(1, num_vars, 16)])
-        else:
-            io_sec = ProverWitnessSecInfo.from_scalars(
-                [num_vars], [[_io_sec(num_vars, inputs)]], dev)
-            comm_io, _ = io_sec.poly_w[0].commit(gens.gens_r1cs_sat.gens_pc,
-                                                 None)
+        io_sec, comm_io = _io_section(num_vars, inputs,
+                                      gens.gens_r1cs_sat.gens_pc, dev)
         comm_io.append_to_transcript(b"poly_commitment", transcript)
         t_wit.stop(dev)
 
@@ -151,14 +156,8 @@ class NIZK:
 
         self.comm_vars.append_to_transcript(b"poly_commitment", transcript)
         t_io = Timer("verify_comm_io")
-        fast = _io_poly_and_comm(num_vars, inputs,
-                                 gens.gens_r1cs_sat.gens_pc, dev)
-        if fast is not None:
-            comm_io = fast[1]
-        else:
-            io_poly = DensePolynomial.from_scalars(
-                _io_sec(num_vars, inputs), dev)
-            comm_io, _ = io_poly.commit(gens.gens_r1cs_sat.gens_pc, None)
+        comm_io = _io_section(num_vars, inputs, gens.gens_r1cs_sat.gens_pc,
+                              dev)[1]
         comm_io.append_to_transcript(b"poly_commitment", transcript)
         t_io.stop()
 

@@ -5,7 +5,9 @@ Reference: src/r1csinstance.rs:20 (R1CSInstance), src/sparse_mlpoly.rs:33
 device, as CSR (rows) and CSC (columns) tensors for the sparse kernels of
 ops/spmv.py (K3): Az/Bz/Cz (multiply_vec_block, r1csinstance.rs:363), the
 phase-2 ABC tables (compute_eval_table_sparse_disjoint_rounds,
-r1csinstance.rs:484) and the verifier's A/B/C evaluations.
+r1csinstance.rs:484) and the verifier's A/B/C evaluations. The SPARK
+commitment to the matrices and its eval proof (R1CSCommitment,
+R1CSEvalProof) wrap models/sparse_mlpoly.py.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from ..core.consts import L
 from ..ops import fq, spmv
 from ..ops import limbs as lb
 from ..ops.sumcheck import rev_perm
+from ..utils.timer import Timer
+from . import sparse_mlpoly as sp
 from .custom_mlpoly import DensePolynomialPqx
 from .dense_mlpoly import DensePolynomial, EqPolynomial, log2, \
     mont_to_scalars, next_pow2
@@ -296,6 +300,90 @@ class R1CSInstance:
         assert self.num_instances == 1
         e = self.multi_evaluate(rx, ry, device)
         return e[0], e[1], e[2]
+
+
+# --------------------------------------------------------------------------
+# SPARK commitment to the matrices (r1csinstance.rs:34-57, 717-780)
+# --------------------------------------------------------------------------
+class R1CSCommitmentGens:
+    """SPARK gens sized to the instance set (r1csinstance.rs:34-57)."""
+
+    __slots__ = ("gens",)
+
+    def __init__(self, label: bytes, num_instances: int, num_cons: int,
+                 num_vars: int, num_nz_entries: int):
+        # reference: num_instances.log_2() + num_cons.log_2()
+        # (Math::log_2 is ceil for non-powers of two, math.rs:13-21)
+        num_poly_vars_x = log2(next_pow2(num_instances)) + \
+            log2(next_pow2(num_cons))
+        num_poly_vars_y = log2(num_vars)
+        self.gens = sp.SparseMatPolyCommitmentGens(
+            label, num_poly_vars_x, num_poly_vars_y,
+            num_instances * num_nz_entries, 3)
+
+
+class R1CSCommitment:
+    __slots__ = ("num_cons", "num_vars", "comm")
+
+    def __init__(self, num_cons, num_vars, comm):
+        self.num_cons = num_cons
+        self.num_vars = num_vars
+        self.comm = comm
+
+    def get_num_cons(self):
+        return self.num_cons
+
+    def get_num_vars(self):
+        return self.num_vars
+
+    def append_to_transcript(self, _label: bytes, transcript):
+        transcript.append_u64(b"num_cons", self.num_cons)
+        transcript.append_u64(b"num_vars", self.num_vars)
+        self.comm.append_to_transcript(b"comm", transcript)
+
+
+class R1CSDecommitment:
+    __slots__ = ("dense",)
+
+    def __init__(self, dense):
+        self.dense = dense
+
+
+def r1cs_commit(inst: R1CSInstance, gens: R1CSCommitmentGens, device=None):
+    """One joint commitment to every instance's A, B and C
+    (r1csinstance.rs:717-736); the dense representation stays on
+    `device` for the eval proof."""
+    polys = []
+    for i in range(inst.num_instances):
+        polys += [inst.A_list[i], inst.B_list[i], inst.C_list[i]]
+    comm, dense = sp.multi_commit(polys, gens.gens, device)
+    return (R1CSCommitment(inst.num_instances * inst.max_num_cons,
+                           inst.num_vars, comm),
+            R1CSDecommitment(dense))
+
+
+class R1CSEvalProof:
+    """Wraps SPARK's SparseMatPolyEvalProof (r1csinstance.rs:738-780)."""
+
+    __slots__ = ("proof",)
+
+    def __init__(self, proof):
+        self.proof = proof
+
+    @staticmethod
+    def prove(decomm: R1CSDecommitment, rx, ry, evals, gens, transcript,
+              random_tape):
+        """Runs on the device of the decommitment."""
+        timer = Timer("R1CSEvalProof::prove")
+        proof = sp.SparseMatPolyEvalProof.prove(
+            decomm.dense, rx, ry, evals, gens.gens, transcript, random_tape)
+        timer.stop(decomm.dense.comb_ops.Zm.device)
+        return R1CSEvalProof(proof)
+
+    def verify(self, comm: R1CSCommitment, rx, ry, evals, gens, transcript,
+               device=None):
+        self.proof.verify(comm.comm, rx, ry, evals, gens.gens, transcript,
+                          device)
 
 
 def produce_synthetic_r1cs(num_instances: int, num_proofs, num_cons: int,

@@ -10,6 +10,9 @@ are one device call per table set (ops/sumcheck.py: K4, or K5 per class,
 fused with the previous round's bind), and the host holds the merlin
 transcript, the degree-3 UniPoly and the small Pedersen/sigma work. One
 device-to-host copy of three field elements per table set and round.
+
+`SumcheckInstanceProof` (non-ZK, sumcheck.rs:28) carries SPARK's product
+layer rounds; its prover is models/product_tree.py prove_cubic_batched.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import sumcheck as sck
 from ..ops.sumcheck import MODE_P, MODE_Q, MODE_W, MODE_X
+from ..utils.errors import ProofVerifyError
 from .commitments import MultiCommitGens, commit_scalar
 from .dense_mlpoly import mont_to_scalar, mont_to_scalars, scalars_to_mont
 from .sigma import DotProductProof
@@ -27,6 +31,33 @@ from .unipoly import UniPoly
 
 _ZERO = Scalar.zero()
 _ONE = Scalar.one()
+
+
+class SumcheckInstanceProof:
+    """Non-ZK sumcheck: plaintext compressed round polys (sumcheck.rs:28)."""
+
+    __slots__ = ("compressed_polys",)
+
+    def __init__(self, compressed_polys):
+        self.compressed_polys = compressed_polys
+
+    def verify(self, claim: Scalar, num_rounds: int, degree_bound: int,
+               transcript):
+        e = claim
+        r = []
+        if len(self.compressed_polys) != num_rounds:
+            raise ProofVerifyError("sumcheck round count")
+        for cp in self.compressed_polys:
+            poly = cp.decompress(e)
+            if poly.degree() != degree_bound:
+                raise ProofVerifyError("sumcheck degree bound")
+            if not (poly.eval_at_zero() + poly.eval_at_one() == e):
+                raise ProofVerifyError("sumcheck round claim")
+            poly.append_to_transcript(b"poly", transcript)
+            r_i = transcript.challenge_scalar(b"challenge_nextround")
+            r.append(r_i)
+            e = poly.evaluate(r_i)
+        return e, r
 
 
 class ZKSumcheckInstanceProof:

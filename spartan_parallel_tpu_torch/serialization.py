@@ -3,8 +3,12 @@
 Reference: serde derives on lib.rs:3908-3911 (NIZK, upstream),
 r1csproof.rs:26-43 (R1CSProof), sumcheck.rs:75-79,
 nizk/mod.rs:16-20,78-81,146-151,292-298,421-427, nizk/bullet.rs:16-19,
-dense_mlpoly.rs:45-47,428-430, unipoly.rs:18-20. Only the NIZK path's
-structs are ported so far; the SNARK/SPARK schemas come with those models.
+dense_mlpoly.rs:45-47,428-430, unipoly.rs:18-20, and for SPARK and the
+single-instance SNARK sumcheck.rs:28-30, product_tree.rs:240-258,
+sparse_mlpoly.rs (DerefsCommitment, DerefsEvalProof, HashLayerProof,
+ProductLayerProof, PolyEvalNetworkProof, SparseMatPolyEvalProof,
+SparseMatPolyCommitment), r1csinstance.rs (R1CSCommitment,
+R1CSEvalProof). The 9-stage SNARK's schemas come with that model.
 
 bincode 1.x default config: usize and Vec lengths as u64 little-endian;
 fixed arrays/tuples with no length prefix; `Scalar` as its raw Montgomery
@@ -83,6 +87,8 @@ def _vec(s):
 SCHEMAS = {
     "PolyCommitment": [("C", _vec("point"))],
     "CompressedUniPoly": [("coeffs_except_linear_term", _vec("scalar"))],
+    "SumcheckInstanceProof": [
+        ("compressed_polys", _vec("CompressedUniPoly"))],
     "KnowledgeProof": [("alpha", "point"), ("z1", "scalar"),
                        ("z2", "scalar")],
     "EqualityProof": [("alpha", "point"), ("z", "scalar")],
@@ -113,6 +119,45 @@ SCHEMAS = {
         ("proof_eval_vars_at_ry_list", _vec("PolyEvalProof")),
         ("proof_eq_sc_phase2", "EqualityProof"),
     ],
+    "LayerProofBatched": [("proof", "SumcheckInstanceProof"),
+                          ("claims_prod_left", _vec("scalar")),
+                          ("claims_prod_right", _vec("scalar"))],
+    "ProductCircuitEvalProofBatched": [
+        ("proof", _vec("LayerProofBatched")),
+        ("claims_dotp", ("tuple", (_vec("scalar"), _vec("scalar"),
+                                   _vec("scalar"))))],
+    "DerefsCommitment": [("comm_ops_val", "PolyCommitment")],
+    "DerefsEvalProof": [("proof_derefs", "PolyEvalProof")],
+    "HashLayerProof": [
+        ("eval_row", ("tuple", (_vec("scalar"), _vec("scalar"), "scalar"))),
+        ("eval_col", ("tuple", (_vec("scalar"), _vec("scalar"), "scalar"))),
+        ("eval_val", _vec("scalar")),
+        ("eval_derefs", ("tuple", (_vec("scalar"), _vec("scalar")))),
+        ("proof_ops", "PolyEvalProof"),
+        ("proof_mem", "PolyEvalProof"),
+        ("proof_derefs", "DerefsEvalProof"),
+    ],
+    "ProductLayerProof": [
+        ("eval_row", ("tuple", ("scalar", _vec("scalar"), _vec("scalar"),
+                                "scalar"))),
+        ("eval_col", ("tuple", ("scalar", _vec("scalar"), _vec("scalar"),
+                                "scalar"))),
+        ("eval_val", ("tuple", (_vec("scalar"), _vec("scalar")))),
+        ("proof_mem", "ProductCircuitEvalProofBatched"),
+        ("proof_ops", "ProductCircuitEvalProofBatched"),
+    ],
+    "PolyEvalNetworkProof": [("proof_prod_layer", "ProductLayerProof"),
+                             ("proof_hash_layer", "HashLayerProof")],
+    "SparseMatPolyEvalProof": [
+        ("comm_derefs", "DerefsCommitment"),
+        ("poly_eval_network_proof", "PolyEvalNetworkProof")],
+    "R1CSEvalProof": [("proof", "SparseMatPolyEvalProof")],
+    "SparseMatPolyCommitment": [
+        ("batch_size", "u64"), ("num_ops", "u64"),
+        ("num_mem_cells", "u64"), ("comm_comb_ops", "PolyCommitment"),
+        ("comm_comb_mem", "PolyCommitment")],
+    "R1CSCommitment": [("num_cons", "u64"), ("num_vars", "u64"),
+                       ("comm", "SparseMatPolyCommitment")],
     # NIZK: the fork's R1CSProof returns 4 challenge vectors
     # [rp, rq_rev, rx, rw++ry] instead of upstream's (rx, ry) pair
     # (lib.rs:3908-3911) — serialized as 4 Vec<Scalar> (PARITY.md D4).
@@ -120,6 +165,14 @@ SCHEMAS = {
              ("comm_vars", "PolyCommitment"),
              ("r", ("tuple", (_vec("scalar"), _vec("scalar"),
                               _vec("scalar"), _vec("scalar"))))],
+    # Upstream-style single-instance SNARK (models/snark_single.py);
+    # same 4-vector challenge caveat as NIZK.
+    "SpartanSNARK": [("r1cs_sat_proof", "R1CSProof"),
+                     ("comm_vars", "PolyCommitment"),
+                     ("inst_evals", ("arr", "scalar", 3)),
+                     ("r1cs_eval_proof", "R1CSEvalProof"),
+                     ("r", ("tuple", (_vec("scalar"), _vec("scalar"),
+                                      _vec("scalar"), _vec("scalar"))))],
 }
 
 
@@ -144,8 +197,12 @@ def _classes():
     here, we import them only when deserializing)."""
     from .models import dense_mlpoly as dm
     from .models import nizk as nz
+    from .models import product_tree as pt
+    from .models import r1csinstance as ri
     from .models import r1csproof as rp
     from .models import sigma as sg
+    from .models import snark_single as ss
+    from .models import sparse_mlpoly as sp
     from .models import sumcheck as sc
     from .models import unipoly as up
 
@@ -153,6 +210,7 @@ def _classes():
         "PolyCommitment": dm.PolyCommitment,
         "PolyEvalProof": dm.PolyEvalProof,
         "CompressedUniPoly": up.CompressedUniPoly,
+        "SumcheckInstanceProof": sc.SumcheckInstanceProof,
         "ZKSumcheckInstanceProof": sc.ZKSumcheckInstanceProof,
         "KnowledgeProof": sg.KnowledgeProof,
         "EqualityProof": sg.EqualityProof,
@@ -161,7 +219,19 @@ def _classes():
         "BulletReductionProof": sg.BulletReductionProof,
         "DotProductProofLog": sg.DotProductProofLog,
         "R1CSProof": rp.R1CSProof,
+        "LayerProofBatched": pt.LayerProofBatched,
+        "ProductCircuitEvalProofBatched": pt.ProductCircuitEvalProofBatched,
+        "DerefsCommitment": sp.DerefsCommitment,
+        "DerefsEvalProof": sp.DerefsEvalProof,
+        "HashLayerProof": sp.HashLayerProof,
+        "ProductLayerProof": sp.ProductLayerProof,
+        "PolyEvalNetworkProof": sp.PolyEvalNetworkProof,
+        "SparseMatPolyEvalProof": sp.SparseMatPolyEvalProof,
+        "SparseMatPolyCommitment": sp.SparseMatPolyCommitment,
+        "R1CSEvalProof": ri.R1CSEvalProof,
+        "R1CSCommitment": ri.R1CSCommitment,
         "NIZK": nz.NIZK,
+        "SpartanSNARK": ss.SpartanSNARK,
     }
 
 

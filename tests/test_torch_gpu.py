@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain versions on the card,
 at small shapes, and a small NIZK proved on the card and on the CPU.
 Marked `gpu`: these skip on a host without a CUDA card (CUDA kernels have
-no CPU mode). chip_smoke.py runs the same comparisons at the NIZK's
+no CPU mode). chip_smoke.py runs the same comparisons at the main paths'
 full shapes.
 
     python -m pytest tests/test_torch_gpu.py -q     # on a machine with a card
@@ -181,6 +181,26 @@ def test_classed_sumcheck_kernel(dev):
     assert torch.equal(sck.eq_fold(tq, r, 4), fq.bind_plain(tq, r, 0, 4))
 
 
+@pytest.mark.parametrize("B,n", [(3, 8), (2, 2), (1, 6000), (4, 8192)])
+def test_product_kernels(dev, B, n):
+    """K6 (layer, cubic round with a shared and a per-instance C) and the
+    pt_fold bind against their plain versions, from the last layer (n = 2)
+    to rounds of several chunks (h = 3000 and 4096 pairs)."""
+    from spartan_parallel_tpu_torch.ops import product as pk
+
+    left, right = rand_field((B, n), dev, 100), rand_field((B, n), dev, 101)
+    got, want = pk.layer_mul(left, right), pk.layer_mul_plain(left, right)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    C = rand_field((n,), dev, 102)
+    Cb = rand_field((B, n), dev, 103)
+    for c in (C, Cb):
+        assert torch.equal(pk.cubic_evals(left, right, c),
+                           pk.cubic_evals_plain(left, right, c))
+    r = rand_field((), dev, 104)
+    for t in (left, C):
+        assert torch.equal(pk.fold(t, r), pk.fold_plain(t, r))
+
+
 def test_nizk_card_matches_cpu(dev):
     from spartan_parallel_tpu_torch import serialization as ser
     from spartan_parallel_tpu_torch.models.nizk import NIZK, NIZKGens
@@ -234,4 +254,34 @@ def test_dp_proof_card_matches_cpu(dev, num_proofs):
         assert proof.verify(P, qmax, num_proofs, 16, views, 16, gens, bound,
                             Transcript(b"t"), d) == r
         out.append(ser.serialize(proof, "R1CSProof"))
+    assert out[0] == out[1]
+
+
+def test_snark_card_matches_cpu(dev):
+    """The upstream SNARK with SPARK at 16 x 16 x 4 under a fixed tape:
+    encode and prove on the card and on the CPU give the same bytes, and
+    both verify."""
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.models.r1csinstance import (
+        produce_synthetic_r1cs,
+    )
+    from spartan_parallel_tpu_torch.models.snark_single import (
+        SpartanSNARK,
+        SpartanSNARKGens,
+    )
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    out = []
+    for d in (dev, "cpu"):
+        inst, vm, im = produce_synthetic_r1cs(1, [1], 16, 16, 4, device=d)
+        gens = SpartanSNARKGens(16, 16, 16)
+        comm, decomm = SpartanSNARK.encode(inst, gens, device=d)
+        proof = SpartanSNARK.prove(inst, comm, decomm, vm[0][0], im[0][0],
+                                   gens, Transcript(b"t"),
+                                   RandomTape(b"proof", seed=b"\x09" * 32),
+                                   device=d)
+        proof.verify(comm, im[0][0], gens, Transcript(b"t"), device=d)
+        out.append((ser.serialize(comm, "R1CSCommitment"),
+                    ser.serialize(proof, "SpartanSNARK")))
     assert out[0] == out[1]
