@@ -5,7 +5,7 @@
     python3 chip_smoke.py --log-cons 16   # a smaller NIZK in phase 4
 
 Phases, each printing one JSON line:
-  1. the card (nvidia-smi name and power limit) and the build of the five
+  1. the card (nvidia-smi name and power limit) and the build of the six
      CUDA kernel sources (csrc/*.cu, one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (exact equality; points after ristretto
@@ -36,8 +36,20 @@ Phases, each printing one JSON line:
      at the upstream README instance (2^20 x 2^20 x 10 inputs, 2^20
      non-zeros per matrix): upstream's stage Timers, the SAT and eval
      proof bytes beside upstream's, peak memory, launches, and a proof
-     with one claimed evaluation changed must be rejected.
-Each of phases 4-7 sets the launch counts to 0 before each run and reads
+     with one claimed evaluation changed must be rejected;
+  8. the 9-stage data-parallel SNARK at the find_min shape of BASELINE.md
+     section B (examples.build_synthetic_zkvm: 9 blocks of 8,192
+     constraints executed 64/16/16/16/4/4/4/2/2 times), not cut: set-up
+     with encode, prove, verify, and a wrong output must be rejected; the
+     stage Timers under upstream's names beside upstream's prove and
+     verify, proof bytes, peak memory and launches.
+Phase 2 also holds K7 (the powers of the shift proofs' challenge) and the
+rlc dot at the find_min path's shape and K7 at 2^20; phase 3 also proves
+the 9-stage SNARK of the counter program, and the memory fixture
+tests/fixtures/counter_mem_bin.{ctk,rtk} read by the port's driver (as it
+is, and with its inputs widened to 5, which its virtual memory needs to
+verify), on the card and on the CPU, with identical bytes.
+Each of phases 4-8 sets the launch counts to 0 before each run and reads
 them after; every kernel row must have been launched on its path. Then the
 kernel table as one JSON line, the card line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero before that.
@@ -306,6 +318,7 @@ def check_kernels(log_n: int, dev, reps: int):
            8 * n * E, (2 * n + p2_muls(n // 2, 2)) * IMAD_FQ_MUL)
     check_dp_kernels(dev, gen, record, cmp_step, E)
     check_spark_kernels(log_n, dev, gen, record, E)
+    check_uni_kernels(dev, gen, record, E)
     return rows, paths
 
 
@@ -500,6 +513,31 @@ def check_spark_kernels(log_n: int, dev, gen, record, E):
            lambda: sp._hash_poly(addr, val, ts, *ch),
            lambda: hash_poly_plain(addr, val, ts, *ch), field_err,
            (4 * 2 * n + 3) * E, 2 * 2 * n * IMAD_FQ_MUL, path="snark")
+
+
+def check_uni_kernels(dev, gen, record, E):
+    """The univariate evaluation of ShiftProofs at the shape of the
+    find_min run of phase 8 (its largest shift table, the perm-exec w3
+    table of 8 x 128 = 1024 entries): K7's powers of the challenge, and
+    the rlc dot on K1; and K7 at 2^20, where its row reads against a
+    bound. Bytes: the table written once (the dot: both tables read
+    once); operations: n - 1 field products (the dot: n)."""
+    from spartan_parallel_tpu_torch.ops import fq, uni
+
+    src = "spartan_parallel_tpu/models/dense_mlpoly.py"
+    c = rand_field((), gen, dev)
+    for name, n in (("fq_powers", 1024), ("fq_powers_2_20", 1 << 20)):
+        record(name, "uni.cu", f"{src}:200",
+               lambda n=n: uni.fq_powers(c, n),
+               lambda n=n: uni.fq_powers_plain(c, n), field_err, n * E,
+               (n - 1) * IMAD_FQ_MUL, path="findmin", counter="fq_powers")
+    n = 1024
+    z = rand_field((n,), gen, dev)
+    pw = uni.fq_powers(c, n)
+    record("rlc_eval", "fq.cu", f"{src}:211",
+           lambda: fq.dot(z, pw, 0, counter="rlc_eval"),
+           lambda: fq.dot_plain(z, pw, 0), field_err, (2 * n + 1) * E,
+           n * IMAD_FQ_MUL, path="findmin")
 
 
 def hash_poly_plain(addr, val, ts, rh2, rh, rm):
@@ -728,6 +766,121 @@ def snark_run(log_cons: int, num_inputs: int, device, seed_tape: bool):
             "verify_s": verify_s, "stages_s": stages}
 
 
+# --------------------------------------------------------------------------
+# Phases 3 and 8: the 9-stage SNARK
+# --------------------------------------------------------------------------
+FINDMIN_EXECS = (64, 16, 16, 16, 4, 4, 4, 2, 2)
+# upstream's find_min run, single core, hardware unstated (BASELINE.md:49)
+UPSTREAM_FINDMIN = {"prove_s": 67.508, "verify_s": 0.318}
+FINDMIN_STAGES = ("SNARK::encode", "SNARK::prove", "inst_commit",
+                  "block_sort", "witness_gen", "input_commit",
+                  "Block Correctness Extract", "eval_sparse_polys",
+                  "Pairwise Check", "Perm Root", "Perm Product",
+                  "Shift Proofs", "IO Proofs", "R1CSProof::prove",
+                  "R1CSEvalProof::prove", "SNARK::verify")
+
+
+def zkvm_run(args, pa, device, tape_seed):
+    """The 9-stage SNARK of one program: set-up with encode, prove under
+    tape_seed (None: a fresh tape), verify, and a wrong output must be
+    rejected."""
+    from spartan_parallel_tpu_torch import examples as ex
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.core.consts import L
+    from spartan_parallel_tpu_torch.utils import timer
+    from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
+
+    timer.totals.clear()
+    t0 = time.perf_counter()
+    ctx = ex.setup_program_instances(args, pa, device=device)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof = ex.prove_program(pa, ctx, tape_seed=tape_seed, device=device)
+    prove_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex.verify_program(proof, pa, ctx, device=device)
+    verify_s = time.perf_counter() - t0
+    stages = {k: timer.totals.get(k) for k in FINDMIN_STAGES}
+    try:
+        ex.verify_program(proof, dict(pa, output=(pa["output"] + 1) % L),
+                          ctx, device=device)
+    except ProofVerifyError:
+        pass
+    else:
+        raise AssertionError("a SNARK with a wrong output verified")
+    raw = ser.serialize(proof, "SNARK")
+    return {"bytes": raw, "compressed": ser.compressed_size(proof, "SNARK"),
+            "setup_s": setup_s, "prove_s": prove_s, "verify_s": verify_s,
+            "stages_s": stages}
+
+
+def widen_inputs(ctk, rtk, niu):
+    """The same program with niu unpadded inputs: the added inputs and
+    outputs are always 0; every column past the old inputs moves up. The
+    perm-root circuit reads a virtual-memory record's (data, ls, ts) as
+    inputs, which needs niu >= 5."""
+    import copy
+
+    old = ctk.num_inputs_unpadded
+    k = niu - old
+
+    def col(c):
+        return c if c <= old else (c + k if c < 2 * old else c + 2 * k)
+
+    def row(r, width):
+        out = [0] * width
+        for c, v in enumerate(r):
+            if v:
+                out[col(c)] = v
+        return out
+
+    num_ios = 1 << (2 * niu - 1).bit_length()
+    ctk, rtk = copy.deepcopy(ctk), copy.deepcopy(rtk)
+    ctk.num_inputs_unpadded = niu
+    ctk.args = [[tuple([(col(c), v) for c, v in side] for side in con)
+                 for con in blk] for blk in ctk.args]
+    ctk.input_liveness = list(ctk.input_liveness) + [False] * k
+    rtk.input = list(rtk.input) + [0] * k
+    rtk.exec_inputs = [row(r, num_ios) for r in rtk.exec_inputs]
+    rtk.block_vars_matrix = [[row(r, len(r)) for r in blk]
+                             for blk in rtk.block_vars_matrix]
+    return ctk, rtk
+
+
+def mem_fixture_run(niu, device):
+    """tests/fixtures/counter_mem_bin.{ctk,rtk} read by the port's driver
+    (widened to niu inputs unless None), set up and proved under a fixed
+    tape; the widened program's proof must verify and reject a tampered
+    witness commitment."""
+    from spartan_parallel_tpu_torch import driver
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.core.edwards import RistrettoPoint
+    from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+
+    base = os.path.join(HERE, "tests", "fixtures", "counter_mem_bin")
+    ctk = driver.CompileTimeKnowledge.from_file(base + ".ctk")
+    rtk = driver.RunTimeKnowledge.from_file(base + ".rtk")
+    if niu is not None:
+        ctk, rtk = widen_inputs(ctk, rtk, niu)
+    s = driver._setup(ctk, rtk, vars_bound=64, device=device)
+    proof = driver._prove(ctk, rtk, s, RandomTape(b"proof",
+                                                  seed=b"\x0d" * 32),
+                          device)
+    raw = ser.serialize(proof, "SNARK")
+    if niu is not None:
+        driver._verify(proof, ctk, rtk, s, device)
+        proof.block_comm_vars_list[0].C[0] = \
+            RistrettoPoint.basepoint().compress()
+        try:
+            driver._verify(proof, ctk, rtk, s, device)
+        except ProofVerifyError:
+            pass
+        else:
+            raise AssertionError("a tampered memory SNARK verified")
+    return raw
+
+
 def expect_reject_snark(run, device) -> None:
     """A SNARK whose first claimed evaluation (A at (rx, ry)) is off by
     one must be rejected."""
@@ -836,6 +989,27 @@ def main() -> int:
           "verified": True, "tamper_rejected": True})
     if not same:
         raise AssertionError("card and CPU SNARKs differ")
+    from spartan_parallel_tpu_torch import examples as ex
+
+    cn = {d: zkvm_run(*ex.build_counter_program(), d, b"\x07" * 32)
+          for d in (dev, "cpu")}
+    same = cn[dev]["bytes"] == cn["cpu"]["bytes"]
+    emit({"phase": "zkvm_counter_fixed_tape", "bytes_identical": same,
+          "proof_bytes": len(cn[dev]["bytes"]), "verified": True,
+          "tamper_rejected": True, "prove_s_cuda": cn[dev]["prove_s"],
+          "prove_s_cpu": cn["cpu"]["prove_s"]})
+    if not same:
+        raise AssertionError("card and CPU 9-stage SNARKs differ")
+    for niu in (None, 5):
+        raw = {d: mem_fixture_run(niu, d) for d in (dev, "cpu")}
+        same = raw[dev] == raw["cpu"]
+        emit({"phase": "zkvm_memory_fixture",
+              "num_inputs_unpadded": niu or 3, "bytes_identical": same,
+              "proof_bytes": len(raw[dev]),
+              "verified": niu is not None,
+              "tamper_rejected": niu is not None})
+        if not same:
+            raise AssertionError("card and CPU memory SNARKs differ")
 
     counts = {}
     torch.cuda.reset_peak_memory_stats()
@@ -896,6 +1070,26 @@ def main() -> int:
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
               "launches": counts[path], "tamper_rejected": True})
         del run
+    # the 9-stage SNARK at the find_min shape (BASELINE.md section B)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zk_args, zk_pa = ex.build_synthetic_zkvm(
+        num_blocks=9, block_cons=8192, num_execs=FINDMIN_EXECS)
+    build_s = time.perf_counter() - t0
+    kernels.reset_counts()
+    run = zkvm_run(zk_args, zk_pa, dev, None)
+    counts["findmin"] = dict(kernels.launches)
+    emit({"phase": "zkvm_findmin", "num_blocks": 9, "block_cons": 8192,
+          "num_execs": list(FINDMIN_EXECS),
+          "num_vars": zk_pa["num_vars"], "card": card,
+          "program_build_s": build_s, "setup_s": run["setup_s"],
+          "prove_s": run["prove_s"], "verify_s": run["verify_s"],
+          "upstream_single_core_cpu": UPSTREAM_FINDMIN,
+          "stages_s": run["stages_s"], "proof_bytes": len(run["bytes"]),
+          "proof_bytes_compressed": run["compressed"],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "launches": counts["findmin"], "tamper_rejected": True})
+    del run, zk_args, zk_pa
     k5 = [f"sc_pc_round_{form}{fused}" for form in ("x", "xs", "q", "qs", "qi")
           for fused in ("", "_fused")]
     if not all(counts["dp_skewed"].get(k) for k in k5):

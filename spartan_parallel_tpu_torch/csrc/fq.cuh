@@ -11,6 +11,10 @@
    0x00000000u, 0x00000000u, 0x10000000u}
 // -l^{-1} mod 2^32
 #define FQ_NPRIME 0x12547e1bu
+// 1 in Montgomery form: 2^256 mod l
+#define FQ_ONE_MONT_WORDS                                              \
+  {0x8d98951du, 0xd6ec3174u, 0x737dcf70u, 0xc6ef5bf4u, 0xfffffffeu,    \
+   0xffffffffu, 0xffffffffu, 0x0fffffffu}
 
 // r = a * b * 2^-256 mod l (CIOS Montgomery multiplication). a, b < l.
 HD void fq_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
@@ -40,6 +44,21 @@ HD void fq_mul(uint32_t* r, const uint32_t* a, const uint32_t* b) {
   }
   copy8(r, t);
   csub8(r, l, t[8]);
+}
+
+// r = c^e for a Montgomery c, in Montgomery form (square-and-multiply from
+// the low bit of e; e = 0 gives the Montgomery one). r may alias c.
+HD void fq_pow(uint32_t* r, const uint32_t* c, uint64_t e) {
+  const uint32_t one[8] = FQ_ONE_MONT_WORDS;
+  uint32_t acc[8], base[8];
+  copy8(acc, one);
+  copy8(base, c);
+  while (e) {
+    if (e & 1) fq_mul(acc, acc, base);
+    e >>= 1;
+    if (e) fq_mul(base, base, base);
+  }
+  copy8(r, acc);
 }
 
 HD void fq_add(uint32_t* r, const uint32_t* a, const uint32_t* b) {

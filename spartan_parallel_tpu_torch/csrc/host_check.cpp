@@ -30,6 +30,16 @@ void host_fq_bind(const int32_t* lo, const int32_t* hi, const int32_t* r,
   }
 }
 
+void host_fq_pow(const int32_t* c, const uint64_t* e, int32_t* out,
+                 long n) {
+  uint32_t x[8], z[8];
+  load16(c, x);
+  for (long i = 0; i < n; ++i) {
+    fq_pow(z, x, e[i]);
+    store16(out + 16 * i, z);
+  }
+}
+
 void host_fp_mul(const int32_t* a, const int32_t* b, int32_t* out, long n) {
   for (long i = 0; i < n; ++i) {
     uint32_t x[8], y[8], z[8];

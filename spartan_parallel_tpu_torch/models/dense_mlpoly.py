@@ -10,7 +10,9 @@ is the JAX package's, byte for byte; the tensors are PyTorch:
   * the eq table is built by doubling (K1 mul and sub), and above 2^13
     entries as the product of two half tables;
   * Hyrax row commitments are one batched MSM (K2) of all sqrt(N) rows;
-  * the L*Z row contraction and evaluations are K1 dot reductions.
+  * the L*Z row contraction and evaluations are K1 dot reductions;
+  * a table read as univariate coefficients (ShiftProofs) is evaluated
+    from the powers of the point (K7) and one K1 dot.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import fq
 from ..ops import limbs as lb
+from ..ops.uni import fq_powers
+from ..utils.errors import ProofVerifyError
 from .commitments import commit_rows_device, commit_scalar
 from .sigma import DotProductProofGens, DotProductProofLog
 
@@ -122,6 +126,15 @@ class EqPolynomial:
             EqPolynomial(self.r[:left]).evals(device),
             EqPolynomial(self.r[left:]).evals(device),
         )
+
+
+def uni_evaluate(poly: "DensePolynomial", c: Scalar) -> Scalar:
+    """The table of `poly` read as univariate coefficients, evaluated at c
+    (the ShiftProofs trick, lib.rs:390-419): the powers of c by K7, then
+    one K1 dot counted as rlc_eval."""
+    Zm = poly.Zm
+    powers = fq_powers(scalars_to_mont([c], Zm.device)[0], Zm.shape[0])
+    return mont_to_scalar(fq.dot(Zm, powers, axis=0, counter="rlc_eval"))
 
 
 class IdentityPolynomial:
@@ -257,6 +270,10 @@ class PolyCommitment:
     def __init__(self, C):
         self.C = list(C)  # list of 32-byte compressed points
 
+    @staticmethod
+    def empty() -> "PolyCommitment":
+        return PolyCommitment([])
+
     def append_to_transcript(self, label: bytes, transcript) -> None:
         # dense_mlpoly.rs:412-420
         transcript.append_message(label, b"poly_commitment_begin")
@@ -280,8 +297,10 @@ def _lz_blind(blinds, L) -> Scalar:
 
 class PolyEvalProof:
     """Hyrax opening: L*Z reduction + log-size dot-product proof
-    (dense_mlpoly.rs:428-530 and the fork's batched-instances variant,
-    :861-1044)."""
+    (dense_mlpoly.rs:428-530) and the fork's batched variants: one poly at
+    many points (:531), instances at their own points (:689), instances
+    as univariates at one point (:1046), instances over disjoint rounds
+    (:861-1044)."""
 
     __slots__ = ("proof",)
 
@@ -326,6 +345,232 @@ class PolyEvalProof:
         blind)."""
         C_Zr = commit_scalar(Zr, _ZERO, gens.gens.gens_1).compress()
         self.verify(gens, transcript, r, C_Zr, comm, device)
+
+    # --- batched points: one poly at many points (dense_mlpoly.rs:531) ---
+    # Points that share their left half share an L*Z row; their R vectors
+    # and claims fold in by powers of one challenge.
+    @staticmethod
+    def _group_points(transcript, r_list, Zr_list, device):
+        left, _ = EqPolynomial.compute_factored_lens(len(r_list[0]))
+        index_map = {}
+        L_list, R_list, Zc_list = [], [], []
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        for i, r in enumerate(r_list):
+            L, R = EqPolynomial(list(r)).compute_factored_evals(device)
+            key = tuple(int(x) for x in r[:left])
+            if key in index_map:
+                c = c * c_base
+                idx = index_map[key]
+                R_list[idx] = [a + c * b for a, b in zip(R_list[idx], R)]
+                Zc_list[idx] = Zc_list[idx] + c * Zr_list[i]
+            else:
+                index_map[key] = len(L_list)
+                L_list.append(L)
+                R_list.append(R)
+                Zc_list.append(Zr_list[i])
+        return L_list, R_list, Zc_list
+
+    @staticmethod
+    def prove_batched_points(poly, blinds_opt, r_list, Zr_list,
+                             blind_Zr_opt, gens, transcript, random_tape):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        assert len(r_list) == len(Zr_list)
+        for r in r_list:
+            assert poly.get_num_vars() == len(r)
+        left, _ = EqPolynomial.compute_factored_lens(len(r_list[0]))
+        L_size = 1 << left
+        blinds = blinds_opt if blinds_opt is not None else \
+            PolyCommitmentBlinds([_ZERO] * L_size)
+        assert len(blinds.blinds) == L_size
+        blind_Zr = blind_Zr_opt if blind_Zr_opt is not None else _ZERO
+        dev = poly.Zm.device
+        L_list, R_list, Zc_list = PolyEvalProof._group_points(
+            transcript, r_list, Zr_list, dev)
+        proofs = []
+        for L, R, Zc in zip(L_list, R_list, Zc_list):
+            proof, _, _ = DotProductProofLog.prove(
+                gens.gens, transcript, random_tape,
+                mont_to_scalars(poly.bound(L)), _lz_blind(blinds.blinds, L),
+                R, Zc, blind_Zr, device=dev)
+            proofs.append(PolyEvalProof(proof))
+        return proofs
+
+    @staticmethod
+    def verify_plain_batched_points(proof_list, gens, transcript, r_list,
+                                    Zr_list, comm, device):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        L_list, R_list, Zc_list = PolyEvalProof._group_points(
+            transcript, r_list, Zr_list, device)
+        if len(L_list) != len(proof_list):
+            raise ProofVerifyError("expected one opening per left half")
+        pts = comm.decompress()
+        for proof, L, R, Zc in zip(proof_list, L_list, R_list, Zc_list):
+            C_Zc = commit_scalar(Zc, _ZERO, gens.gens.gens_1).compress()
+            C_LZ = multiscalar_mul(L, pts).compress()
+            proof.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zc)
+
+    # --- batched instances, each at its own point (dense_mlpoly.rs:689) --
+    @staticmethod
+    def _fit_point(r, num_vars: int):
+        """The point cut or zero-padded in front to num_vars variables."""
+        r = list(r)
+        if num_vars >= len(r):
+            return [_ZERO] * (num_vars - len(r)) + r
+        return r[len(r) - num_vars:]
+
+    @staticmethod
+    def prove_batched_instances(poly_list, blinds_opt, r_list, Zr_list,
+                                blind_Zr_opt, gens, transcript, random_tape):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        assert len(poly_list) == len(r_list) == len(Zr_list)
+        index_map = {}
+        LZ_list, Zc_list, L_list, R_list = [], [], [], []
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        for i, poly in enumerate(poly_list):
+            num_vars = poly.get_num_vars()
+            r = PolyEvalProof._fit_point(r_list[i], num_vars)
+            L, R = EqPolynomial(r).compute_factored_evals(poly.Zm.device)
+            key = (num_vars, tuple(int(x) for x in R))
+            if key in index_map:
+                c = c * c_base
+                idx = index_map[key]
+                LZ = poly.bound(L)
+                cm = scalars_to_mont([c], LZ.device)[0]
+                LZ_list[idx] = fq.add(LZ_list[idx], fq.mul(LZ, cm))
+                Zc_list[idx] = Zc_list[idx] + c * Zr_list[i]
+            else:
+                index_map[key] = len(LZ_list)
+                LZ_list.append(poly.bound(L))
+                Zc_list.append(Zr_list[i])
+                L_list.append(L)
+                R_list.append(R)
+
+        proofs = []
+        blind_Zr = blind_Zr_opt if blind_Zr_opt is not None else _ZERO
+        for i in range(len(LZ_list)):
+            L = L_list[i]
+            blinds = blinds_opt if blinds_opt is not None else \
+                PolyCommitmentBlinds([_ZERO] * len(L))
+            assert len(blinds.blinds) == len(L)
+            proof, _, _ = DotProductProofLog.prove(
+                gens.gens, transcript, random_tape,
+                mont_to_scalars(LZ_list[i]), _lz_blind(blinds.blinds, L),
+                R_list[i], Zc_list[i], blind_Zr, device=LZ_list[i].device)
+            proofs.append(PolyEvalProof(proof))
+        return proofs
+
+    @staticmethod
+    def verify_plain_batched_instances(proof_list, gens, transcript, r_list,
+                                       Zr_list, comm_list, num_vars_list,
+                                       device):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        assert len(comm_list) == len(r_list)
+        index_map = {}
+        LZ_list, Zc_list, R_list = [], [], []
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        for i, comm in enumerate(comm_list):
+            pts = comm.decompress()
+            num_vars = num_vars_list[i]
+            r = PolyEvalProof._fit_point(r_list[i], num_vars)
+            L, R = EqPolynomial(r).compute_factored_evals(device)
+            key = (num_vars, tuple(int(x) for x in R))
+            if key in index_map:
+                c = c * c_base
+                idx = index_map[key]
+                LZ_list[idx] = LZ_list[idx] + \
+                    multiscalar_mul(L[: len(pts)], pts) * c
+                Zc_list[idx] = Zc_list[idx] + c * Zr_list[i]
+            else:
+                index_map[key] = len(LZ_list)
+                LZ_list.append(multiscalar_mul(L[: len(pts)], pts))
+                Zc_list.append(Zr_list[i])
+                R_list.append(R)
+        if len(LZ_list) != len(proof_list):
+            raise ProofVerifyError("expected one opening per size class")
+        for proof, LZ, Zc, R in zip(proof_list, LZ_list, Zc_list, R_list):
+            C_Zc = commit_scalar(Zc, _ZERO, gens.gens.gens_1).compress()
+            proof.proof.verify(len(R), gens.gens, transcript, R,
+                               LZ.compress(), C_Zc)
+
+    # --- univariate batched openings at one scalar (dense_mlpoly.rs:1046) -
+    # A table of 2^num_vars coefficients is a (2^left, 2^right) matrix:
+    # its value at r is L Z R with R = (1, r, ..., r^(2^right - 1)) and
+    # L = (1, r^(2^right), r^(2 * 2^right), ...). Both are host loops of at
+    # most 2^right entries, as in the JAX package.
+    @staticmethod
+    def _uni_powers(r: Scalar, n: int) -> list:
+        out, x = [], _ONE
+        for _ in range(n):
+            out.append(x)
+            x = x * r
+        return out
+
+    @staticmethod
+    def _uni_L(r: Scalar, num_vars: int) -> list:
+        left_nv, right_nv = EqPolynomial.compute_factored_lens(num_vars)
+        rb = _ONE
+        for _ in range(1 << right_nv):
+            rb = rb * r
+        return PolyEvalProof._uni_powers(rb, 1 << left_nv)
+
+    @staticmethod
+    def prove_uni_batched_instances(poly_list, r: Scalar, Zr_list, gens,
+                                    transcript, random_tape):
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        max_num_vars = max(p.get_num_vars() for p in poly_list)
+        _, right = EqPolynomial.compute_factored_lens(max_num_vars)
+        R_size = 1 << right
+        R = PolyEvalProof._uni_powers(r, R_size)
+
+        dev = poly_list[0].Zm.device
+        L_map = {}
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        LZ_comb = torch.zeros((R_size, 16), dtype=torch.int32, device=dev)
+        Zr_comb = _ZERO
+        for i, poly in enumerate(poly_list):
+            num_vars = poly.get_num_vars()
+            if num_vars not in L_map:
+                L_map[num_vars] = PolyEvalProof._uni_L(r, num_vars)
+            LZ = poly.bound(L_map[num_vars])  # (R_size_i, 16)
+            scaled = fq.mul(LZ, scalars_to_mont([c], dev)[0])
+            LZ_comb[:LZ.shape[0]] = fq.add(LZ_comb[:LZ.shape[0]], scaled)
+            Zr_comb = Zr_comb + c * Zr_list[i]
+            c = c * c_base
+
+        proof, _C_LR, C_Zr_prime = DotProductProofLog.prove(
+            gens.gens, transcript, random_tape, mont_to_scalars(LZ_comb),
+            _ZERO, R, Zr_comb, _ZERO, device=dev)
+        return PolyEvalProof(proof), C_Zr_prime
+
+    def verify_uni_batched_instances(self, gens, transcript, r: Scalar,
+                                     C_Zr_list, comm_list, poly_size):
+        """C_Zr_list: list of RistrettoPoint."""
+        transcript.append_protocol_name(PolyEvalProof.protocol_name())
+        _, right = EqPolynomial.compute_factored_lens(
+            log2(next_pow2(max(poly_size))))
+        R = PolyEvalProof._uni_powers(r, 1 << right)
+
+        L_map = {}
+        c_base = transcript.challenge_scalar(b"challenge_c")
+        c = _ONE
+        C_LZ_comb = RistrettoPoint.identity()
+        C_Zr_comb = RistrettoPoint.identity()
+        for i, comm in enumerate(comm_list):
+            num_vars = log2(next_pow2(poly_size[i]))
+            if num_vars not in L_map:
+                L_map[num_vars] = PolyEvalProof._uni_L(r, num_vars)
+            pts = comm.decompress()
+            C_LZ = multiscalar_mul(L_map[num_vars][: len(pts)], pts)
+            C_LZ_comb = C_LZ_comb + C_LZ * c
+            C_Zr_comb = C_Zr_comb + C_Zr_list[i] * c
+            c = c * c_base
+
+        self.proof.verify(len(R), gens.gens, transcript, R,
+                          C_LZ_comb.compress(), C_Zr_comb.compress())
 
     # --- batched opening: many instances, (rq, ry) trimmed per size ------
     # One dot-product proof per distinct (num_proofs, num_inputs) pair;

@@ -349,6 +349,51 @@ class R1CSDecommitment:
         self.dense = dense
 
 
+def next_power_of_eight(val: int) -> int:
+    base = 1
+    while base < val:
+        base *= 8
+    return base
+
+
+def _multi_commit_group(inst: R1CSInstance, gens: R1CSCommitmentGens,
+                        device=None):
+    """One SPARK commitment per group of the instances' A, B and C
+    matrices, grouped by the next power of eight of their padded nnz
+    (r1csinstance.rs:646-714). Returns (label_map, comm_list,
+    decomm_list): label_map[g] lists 3 * instance + (0, 1, 2) for A, B, C
+    of group g."""
+    nnz_size = {}
+    label_map = []
+    sparse_polys_list = []
+    for i in range(inst.num_instances):
+        for k, mats in enumerate((inst.A_list, inst.B_list, inst.C_list)):
+            m = mats[i]
+            length = next_power_of_eight(next_pow2(max(
+                1, m.get_num_nz_entries())))
+            if length in nnz_size:
+                idx = nnz_size[length]
+                label_map[idx].append(3 * i + k)
+                sparse_polys_list[idx].append(m)
+            else:
+                nnz_size[length] = len(sparse_polys_list)
+                label_map.append([3 * i + k])
+                sparse_polys_list.append([m])
+
+    comm_list, decomm_list = [], []
+    for polys in sparse_polys_list:
+        comm, dense = sp.multi_commit(polys, gens.gens, device)
+        comm_list.append(R1CSCommitment(
+            inst.num_instances * inst.max_num_cons, inst.num_vars, comm))
+        decomm_list.append(R1CSDecommitment(dense))
+    return label_map, comm_list, decomm_list
+
+
+def r1cs_multi_commit(inst: R1CSInstance, gens: R1CSCommitmentGens,
+                      device=None):
+    return _multi_commit_group(inst, gens, device)
+
+
 def r1cs_commit(inst: R1CSInstance, gens: R1CSCommitmentGens, device=None):
     """One joint commitment to every instance's A, B and C
     (r1csinstance.rs:717-736); the dense representation stays on

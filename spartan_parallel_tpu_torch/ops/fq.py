@@ -192,8 +192,10 @@ def bind(t: torch.Tensor, r: torch.Tensor, axis: int, n_half: int,
     return out
 
 
-def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """sum_k a*b along `axis`; b broadcasts against a."""
+def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0,
+        counter: str | None = None) -> torch.Tensor:
+    """sum_k a*b along `axis`; b broadcasts against a. `counter` as in
+    mul."""
     _check_limbs(a)
     _check_limbs(b)
     if a.device.type == "cpu":
@@ -223,6 +225,8 @@ def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0) -> torch.Tensor:
     kernels.launch("fq_dot", "fq_dot_launch", a.data_ptr(), b3.data_ptr(),
                    part.data_ptr(), out.data_ptr(), outer, K, inner, sbo, sbk,
                    sbi, kernels.stream(a))
+    if counter is not None:
+        kernels.count(counter)
     return out
 
 

@@ -9,9 +9,9 @@ cudaGetLastError() and `launch` raises when it is not 0.
 
 `launches` counts, per wrapper, the calls that launched a kernel on the
 card; a function built on K1's wrappers (eq tables, eq_fold, pc_bind, the
-ABC combination, SPARK's hash layer and product-tree folds) also counts
-its launches under its own name. CPU tensors take the plain PyTorch
-versions and are not counted.
+ABC combination, SPARK's hash layer and product-tree folds, the rlc dot
+of ShiftProofs) also counts its launches under its own name. CPU tensors
+take the plain PyTorch versions and are not counted.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 _HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "reduce.cuh")
-SOURCES = ("fq", "msm", "spmv", "sumcheck", "product")
+SOURCES = ("fq", "msm", "spmv", "sumcheck", "product", "uni")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -54,6 +54,7 @@ _ENTRIES = {
                                                 _P, _P, _P]),
     "pt_layer_mul_launch": ("product", [_P, _P, _P, _P, _I64, _I64, _P]),
     "pt_cubic_launch": ("product", [_P] * 5 + [_I64, _I64, _I64, _P]),
+    "fq_powers_launch": ("uni", [_P, _P, _I64, _P]),
 }
 
 launches: dict = {}

@@ -8,7 +8,8 @@ single-instance SNARK sumcheck.rs:28-30, product_tree.rs:240-258,
 sparse_mlpoly.rs (DerefsCommitment, DerefsEvalProof, HashLayerProof,
 ProductLayerProof, PolyEvalNetworkProof, SparseMatPolyEvalProof,
 SparseMatPolyCommitment), r1csinstance.rs (R1CSCommitment,
-R1CSEvalProof). The 9-stage SNARK's schemas come with that model.
+R1CSEvalProof), and for the 9-stage SNARK lib.rs:701-756 (SNARK),
+lib.rs:189-196 (IOProofs), lib.rs:365-370 (ShiftProofs).
 
 bincode 1.x default config: usize and Vec lengths as u64 little-endian;
 fixed arrays/tuples with no length prefix; `Scalar` as its raw Montgomery
@@ -158,6 +159,53 @@ SCHEMAS = {
         ("comm_comb_mem", "PolyCommitment")],
     "R1CSCommitment": [("num_cons", "u64"), ("num_vars", "u64"),
                        ("comm", "SparseMatPolyCommitment")],
+    "IOProofs": [("proofs", _vec("PolyEvalProof"))],
+    "ShiftProofs": [("proof", "PolyEvalProof"),
+                    ("C_orig_evals", _vec("point")),
+                    ("C_shifted_evals", _vec("point")),
+                    ("openings", _vec(_vec("point")))],
+    "SNARK": [
+        ("block_comm_vars_list", _vec("PolyCommitment")),
+        ("exec_comm_inputs", _vec("PolyCommitment")),
+        ("addr_comm_phy_mems", "PolyCommitment"),
+        ("addr_comm_phy_mems_shifted", "PolyCommitment"),
+        ("addr_comm_vir_mems", "PolyCommitment"),
+        ("addr_comm_vir_mems_shifted", "PolyCommitment"),
+        ("addr_comm_ts_bits", "PolyCommitment"),
+        ("perm_exec_comm_w2_list", "PolyCommitment"),
+        ("perm_exec_comm_w3_list", "PolyCommitment"),
+        ("perm_exec_comm_w3_shifted", "PolyCommitment"),
+        ("block_comm_w2_list", _vec("PolyCommitment")),
+        ("block_comm_w3_list", _vec("PolyCommitment")),
+        ("block_comm_w3_list_shifted", _vec("PolyCommitment")),
+        ("init_phy_mem_comm_w2", "PolyCommitment"),
+        ("init_phy_mem_comm_w3", "PolyCommitment"),
+        ("init_phy_mem_comm_w3_shifted", "PolyCommitment"),
+        ("init_vir_mem_comm_w2", "PolyCommitment"),
+        ("init_vir_mem_comm_w3", "PolyCommitment"),
+        ("init_vir_mem_comm_w3_shifted", "PolyCommitment"),
+        ("phy_mem_addr_comm_w2", "PolyCommitment"),
+        ("phy_mem_addr_comm_w3", "PolyCommitment"),
+        ("phy_mem_addr_comm_w3_shifted", "PolyCommitment"),
+        ("vir_mem_addr_comm_w2", "PolyCommitment"),
+        ("vir_mem_addr_comm_w3", "PolyCommitment"),
+        ("vir_mem_addr_comm_w3_shifted", "PolyCommitment"),
+        ("block_r1cs_sat_proof", "R1CSProof"),
+        ("block_inst_evals_bound_rp", ("arr", "scalar", 3)),
+        ("block_inst_evals_list", _vec("scalar")),
+        ("block_r1cs_eval_proof_list", _vec("R1CSEvalProof")),
+        ("pairwise_check_r1cs_sat_proof", "R1CSProof"),
+        ("pairwise_check_inst_evals_bound_rp", ("arr", "scalar", 3)),
+        ("pairwise_check_inst_evals_list", _vec("scalar")),
+        ("pairwise_check_r1cs_eval_proof", "R1CSEvalProof"),
+        ("perm_root_r1cs_sat_proof", "R1CSProof"),
+        ("perm_root_inst_evals", ("arr", "scalar", 3)),
+        ("perm_root_r1cs_eval_proof", "R1CSEvalProof"),
+        ("perm_poly_poly_list", _vec("scalar")),
+        ("proof_eval_perm_poly_prod_list", _vec("PolyEvalProof")),
+        ("shift_proof", "ShiftProofs"),
+        ("io_proof", "IOProofs"),
+    ],
     # NIZK: the fork's R1CSProof returns 4 challenge vectors
     # [rp, rq_rev, rx, rw++ry] instead of upstream's (rx, ry) pair
     # (lib.rs:3908-3911) — serialized as 4 Vec<Scalar> (PARITY.md D4).
@@ -201,6 +249,7 @@ def _classes():
     from .models import r1csinstance as ri
     from .models import r1csproof as rp
     from .models import sigma as sg
+    from .models import snark as sn
     from .models import snark_single as ss
     from .models import sparse_mlpoly as sp
     from .models import sumcheck as sc
@@ -230,6 +279,9 @@ def _classes():
         "SparseMatPolyCommitment": sp.SparseMatPolyCommitment,
         "R1CSEvalProof": ri.R1CSEvalProof,
         "R1CSCommitment": ri.R1CSCommitment,
+        "IOProofs": sn.IOProofs,
+        "ShiftProofs": sn.ShiftProofs,
+        "SNARK": sn.SNARK,
         "NIZK": nz.NIZK,
         "SpartanSNARK": ss.SpartanSNARK,
     }

@@ -14,8 +14,11 @@ _ENABLED = bool(os.environ.get("SPARTAN_PROFILE"))
 _DEPTH = 0
 
 # last elapsed seconds per label, regardless of _ENABLED — lets bench.py
-# report per-stage metrics (roofline %) without parsing profiler output
+# report per-stage metrics (roofline %) without parsing profiler output;
+# totals sums them per label (a label that recurs within one prove, as
+# R1CSProof::prove does in the 9-stage SNARK) until the caller clears it
 records: dict = {}
+totals: dict = {}
 
 
 def enable(on: bool = True) -> None:
@@ -45,6 +48,7 @@ class Timer:
                 torch.cuda.synchronize(dev)
         dt = time.perf_counter() - self.t0
         records[self.label] = dt
+        totals[self.label] = totals.get(self.label, 0.0) + dt
         if _ENABLED:
             _DEPTH -= 1
             print("  " * _DEPTH + f"* {self.label} {dt * 1e3:.3f}ms")

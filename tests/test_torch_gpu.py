@@ -285,3 +285,36 @@ def test_snark_card_matches_cpu(dev):
         out.append((ser.serialize(comm, "R1CSCommitment"),
                     ser.serialize(proof, "SpartanSNARK")))
     assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 4097, 1 << 14])
+def test_powers_kernel(dev, n):
+    """K7 against fq_powers_plain, and the rlc dot (K1, counted as
+    rlc_eval) against its plain version, across tile edges."""
+    from spartan_parallel_tpu_torch.ops import kernels, uni
+
+    c = rand_field((), dev, 5)
+    got = uni.fq_powers(c, n)
+    assert torch.equal(got, uni.fq_powers_plain(c, n))
+    z = rand_field((n,), dev, 6)
+    before = kernels.launches.get("rlc_eval", 0)
+    assert torch.equal(fq.dot(z, got, 0, counter="rlc_eval"),
+                       fq.dot_plain(z, got, 0))
+    assert kernels.launches["rlc_eval"] == before + 1
+
+
+def test_counter_snark_card_matches_cpu(dev):
+    """The 9-stage SNARK of the counter program under a fixed tape: set-up
+    and prove on the card and on the CPU give the same bytes, and the
+    card's proof verifies there."""
+    from spartan_parallel_tpu_torch import examples as ex
+    from spartan_parallel_tpu_torch import serialization as ser
+
+    out = []
+    for d in (dev, "cpu"):
+        args, pa = ex.build_counter_program()
+        ctx = ex.setup_counter_instances(args, device=d)
+        proof = ex.prove_counter(pa, ctx, tape_seed=b"\x07" * 32, device=d)
+        ex.verify_counter(proof, pa, ctx, device=d)
+        out.append(ser.serialize(proof, "SNARK"))
+    assert out[0] == out[1]

@@ -33,6 +33,7 @@ def lib(tmp_path_factory):
     vp, n = ctypes.c_void_p, ctypes.c_long
     lib.host_fq_mul.argtypes = [vp, vp, vp, n]
     lib.host_fq_bind.argtypes = [vp, vp, vp, vp, n]
+    lib.host_fq_pow.argtypes = [vp, vp, vp, n]
     lib.host_fp_mul.argtypes = [vp, vp, vp, n]
     lib.host_pt_add.argtypes = [vp, vp, vp, n]
     lib.host_pt_double.argtypes = [vp, vp, n]
@@ -61,6 +62,22 @@ def test_fq_mul_and_bind(lib):
     want = fq.bind(torch.from_numpy(np.concatenate([a, b])),
                    torch.from_numpy(r), 0, n, n)
     assert np.array_equal(out, want.numpy())
+
+
+def test_fq_pow(lib):
+    """K7's per-thread step (csrc/fq.cuh fq_pow, square-and-multiply on
+    Montgomery limbs) against Python's pow(c, e, l), exact: every exponent
+    of the path's tables (0 to 1023), the first power of each thread of a
+    2^20 table, and 64-bit edge cases."""
+    c_int = rand_mod(L, 6)[5]
+    c = fq.encode([c_int])[0].copy()
+    es = list(range(1024)) + [4096 * k + t for k in (1, 17, 255)
+                              for t in (0, 1, 255)] + \
+        [(1 << 20) - 1, (1 << 32) + 5, (1 << 64) - 1]
+    e = np.array(es, dtype=np.uint64)
+    out = np.zeros((len(es), 16), dtype=np.int32)
+    lib.host_fq_pow(ptr(c), ptr(e), ptr(out), len(es))
+    assert fq.decode(out) == [pow(c_int, x, L) for x in es]
 
 
 def test_fp_mul(lib):
