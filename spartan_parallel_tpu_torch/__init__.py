@@ -4,14 +4,16 @@ The port so far: the 9-stage data-parallel SNARK of the zkVM backend
 (instances -> encode -> prove -> verify, and the .ctk/.rtk driver), the
 data-parallel R1CSProof under it (P instances, each executed Q_p times,
 1-16 witness sections; dense or q-size-classed z layout), the NIZK built
-on it, and the upstream single-instance SNARK with SPARK, with the
-host-loop ZK sumcheck and Hyrax openings with the bullet reduction, on an
-NVIDIA H100 through CUDA kernels written by hand (csrc/: K1 scalar field,
-K2 MSM and point fold, K3 sparse R1CS products, K4 sumcheck rounds, K5
-q-size-classed phase-1 rounds, K6 SPARK's grand-product circuits, K7 the
-powers of a scalar for ShiftProofs). It imports torch, numpy and the
-standard library only; the JAX package is its reference in the tests,
-never a dependency.
+on it, and the upstream single-instance SNARK with SPARK, with
+device-resident ZK sumcheck rounds (the host loop for CPU tables) and
+Hyrax openings with the bullet reduction, on an NVIDIA H100 through CUDA
+kernels written by hand (csrc/: K1 scalar field, K2 MSM and point fold,
+K3 sparse R1CS products, K4 sumcheck rounds, K5 q-size-classed phase-1
+rounds, K6 SPARK's grand-product circuits, K7 the powers of a scalar for
+ShiftProofs, K8-K11 the device round: Keccak-f[1600], ristretto
+compression, comb commitments and the round tail with its transcript).
+It imports torch, numpy and the standard library only; the JAX package
+is its reference in the tests, never a dependency.
 
 Entry points run on the card unless the caller passes device="cpu", where
 every kernel's plain PyTorch version runs instead.

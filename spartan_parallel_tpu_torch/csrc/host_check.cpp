@@ -1,9 +1,12 @@
 // Host build of the per-element arithmetic in fq.cuh, fp.cuh and curve.cuh
-// (g++, no CUDA), so the CPU tests can hold the kernels' arithmetic against
-// the plain PyTorch versions. Each entry maps over n elements of 16-limb
-// int32 values (points: 4 x 16 limbs).
+// and of the device transcript and round tail in keccak.cuh, ristretto.cuh
+// and zk_round.cuh (g++, no CUDA), so the CPU tests can hold the kernels'
+// arithmetic against the plain PyTorch versions and the JAX package. Each
+// entry maps over n elements of 16-limb int32 values (points: 4 x 16 limbs;
+// states and encodings: one int32 per byte).
 #include "curve.cuh"
 #include "fq.cuh"
+#include "zk_round.cuh"
 
 extern "C" {
 
@@ -67,6 +70,90 @@ void host_pt_double(const int32_t* p, int32_t* out, long n) {
     pt_double(a, a);
     pt_store(out + 64 * i, a);
   }
+}
+
+void host_keccak(const int32_t* in, int32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    uint8_t st[200];
+    for (int k = 0; k < 200; ++k) st[k] = (uint8_t)in[200 * i + k];
+    keccak_bytes(st);
+    for (int k = 0; k < 200; ++k) out[200 * i + k] = st[k];
+  }
+}
+
+// One STROBE operation on a (202,) transcript state: op 0 meta_ad, 1 ad
+// (data absorbed), 2 prf (n bytes squeezed into out).
+void host_strobe_op(int32_t* st_io, int op, const uint8_t* data,
+                    uint8_t* out, long n, int more) {
+  Strobe s;
+  strobe_load(s, st_io);
+  if (op == 0)
+    strobe_meta_ad(s, data, (int)n, more != 0);
+  else if (op == 1)
+    strobe_ad(s, data, (int)n, more != 0);
+  else
+    strobe_prf(s, out, (int)n, more != 0);
+  strobe_store(st_io, s);
+}
+
+void host_challenge_scalar(int32_t* st_io, const char* label, int32_t* out) {
+  Strobe s;
+  uint32_t r[8];
+  strobe_load(s, st_io);
+  merlin_challenge_scalar(s, label, r);
+  strobe_store(st_io, s);
+  store16(out, r);
+}
+
+void host_from_bytes_wide(const int32_t* by, int32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    uint8_t b[64];
+    uint32_t r[8];
+    for (int k = 0; k < 64; ++k) b[k] = (uint8_t)by[64 * i + k];
+    fq_from_bytes_wide(r, b);
+    store16(out + 16 * i, r);
+  }
+}
+
+void host_compress(const int32_t* pts, int32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    Point p;
+    uint8_t b[32];
+    pt_load(p, pts + 64 * i);
+    ristretto_compress(b, p);
+    bytes_store(out + 32 * i, b);
+  }
+}
+
+// batch commitments of n Montgomery scalars each
+void host_comb(const int32_t* tab, long n, const int32_t* scal, int32_t* out,
+               long batch) {
+  for (long b = 0; b < batch; ++b) {
+    uint32_t canon[8][8], x[8];
+    for (long g = 0; g < n; ++g) {
+      load16(scal + (b * n + g) * 16, x);
+      fq_canon(canon[g], x);
+    }
+    Point p;
+    comb_commit_host(p, tab, (int)n, canon);
+    pt_store(out + 64 * b, p);
+  }
+}
+
+void host_zk_round_tail(const int32_t* evs, long k, int32_t* st_io,
+                        int32_t* carry, const int32_t* tape, int32_t* out,
+                        const int32_t* tab_n, const int32_t* tab_1) {
+  static ZkTail z;
+  Point p;
+  zk_tail_load(z, evs, (int)k, st_io, carry, tape);
+  comb_commit_host(p, tab_n, 5, z.sc);
+  zk_tail_poly(z, p);
+  comb_commit_host(p, tab_1, 2, z.sc);
+  zk_tail_eval(z, p);
+  comb_commit_host(p, tab_1, 2, z.sc);
+  zk_tail_cy(z, p);
+  comb_commit_host(p, tab_1, 2, z.sc);
+  zk_tail_finish(z, p, st_io, carry, out);
 }
 
 }  // extern "C"

@@ -21,7 +21,7 @@ import torch
 
 from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
-from ..ops import curve, fq, msm
+from ..ops import curve, fq, msm, ristretto_dev
 from ..ops import limbs as lb
 
 
@@ -69,6 +69,15 @@ class MultiCommitGens:
         if key not in self._dev:
             self._dev[key] = lb.to_device(
                 curve.encode_points(self.G + [self.h]), device)
+        return self._dev[key]
+
+    def comb_tables(self, device) -> torch.Tensor:
+        """The fixed-base comb tables of G ++ [h] (ops/ristretto_dev.py),
+        (n+1, 64, 16, 4, 16), built once and kept on `device`."""
+        key = ("comb", str(device))
+        if key not in self._dev:
+            self._dev[key] = lb.to_device(
+                ristretto_dev.make_comb_tables(self.G + [self.h]), device)
         return self._dev[key]
 
 

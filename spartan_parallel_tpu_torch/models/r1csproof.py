@@ -11,7 +11,9 @@ byte for byte; the tensors are PyTorch on the caller's device:
     (P_c, Q_c, W, Y, 16) tensor per q-size class when the counts differ
     (sorted in decreasing order), O(sum_p Q_p) instead of O(P Q_max);
   * Az/Bz/Cz are K3 SpMV launches per instance, the phase-1 sumcheck runs
-    K4 (dense) or K5 (classed) in the host round loop, phase 2 runs K4;
+    K4 (dense) or K5 (classed), phase 2 runs K4, each round followed on
+    the card by K11's round tail (models/sumcheck.py; the host loop for
+    CPU tables);
   * the witness openings group the sections' polynomials by size into
     batched Hyrax openings.
 

@@ -4,12 +4,23 @@
 polynomial, a claim commitment and a dot-product proof per round; the
 verifier (sumcheck.rs:94-186) never sees plaintext round polynomials. The
 provers are the fork's disjoint-rounds variants that drive both R1CS
-sumchecks (sumcheck.rs:788, :1067), and phase 1's q-size-classed form, run
-as the JAX package's host loop: each round's evaluations and table binds
-are one device call per table set (ops/sumcheck.py: K4, or K5 per class,
-fused with the previous round's bind), and the host holds the merlin
-transcript, the degree-3 UniPoly and the small Pedersen/sigma work. One
-device-to-host copy of three field elements per table set and round.
+sumchecks (sumcheck.rs:788, :1067), and phase 1's q-size-classed form.
+Each round's evaluations and table binds are one device call per table set
+(ops/sumcheck.py: K4, or K5 per class, fused with the previous round's
+bind). The rest of the round runs in one of two forms, with the same
+bytes:
+
+- device-resident rounds (`_rounds_dev`, the default for tables on the
+  card, as the JAX package's default off its CPU backend): K11
+  (ops/zk_round.py) runs each round's tail on the card after the round
+  kernel, with the transcript on the card; the challenge goes straight to
+  the next round's bind. One upload before a sumcheck, one download after
+  it, no host sync in between;
+- the host loop (`_rounds`, the default for CPU tables): the host holds
+  the merlin transcript, the degree-3 UniPoly and the small Pedersen and
+  sigma work, with one device-to-host copy of the evaluations per round.
+
+The tables' device picks the form (`_device_rounds_on`).
 
 `SumcheckInstanceProof` (non-ZK, sumcheck.rs:28) carries SPARK's product
 layer rounds; its prover is models/product_tree.py prove_cubic_batched.
@@ -17,11 +28,16 @@ layer rounds; its prover is models/product_tree.py prove_cubic_batched.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
+from ..ops import fq
+from ..ops import ristretto_dev as rdev
 from ..ops import sumcheck as sck
+from ..ops import transcript_dev as tdev
+from ..ops import zk_round as zkr
 from ..ops.sumcheck import MODE_P, MODE_Q, MODE_W, MODE_X
 from ..utils.errors import ProofVerifyError
 from .commitments import MultiCommitGens, commit_scalar
@@ -31,6 +47,69 @@ from .unipoly import UniPoly
 
 _ZERO = Scalar.zero()
 _ONE = Scalar.one()
+
+
+def _device_rounds_on(device) -> bool:
+    """Device-resident rounds for tables on the card, the host loop for
+    CPU tables (the JAX package: device rounds off its CPU backend)."""
+    return torch.device(device).type == "cuda"
+
+
+def _scan_prep(num_rounds: int, blinds_poly, blinds_evals, blind_claim,
+               random_tape) -> np.ndarray:
+    """The rounds' tape values as (num_rounds, 11, 16) int32 (the layout of
+    ops/zk_round.py; delta's two rows are left zero for the card to fill).
+    Each round's d_vec, r_delta and r_beta are drawn in the order the host
+    loop's DotProductProofs draw them, which keeps the bytes equal."""
+    rows = []
+    for j in range(num_rounds):
+        dv = random_tape.random_vector(b"d_vec", 4)
+        rd = random_tape.random_scalar(b"r_delta")
+        rb = random_tape.random_scalar(b"r_beta")
+        blind_sc = blind_claim if j == 0 else blinds_evals[j - 1]
+        rows += [blinds_poly[j], blinds_evals[j], blind_sc, *dv, rd, rb, 0, 0]
+    return fq.encode(rows).reshape(num_rounds, zkr.TAPE_ROWS, 16)
+
+
+def _queue_rounds(modes, live, first, step, st, carry, tape, out, tab_n,
+                  tab_1):
+    """Queue every round: the round kernel, then the tail (K11), which
+    writes r into out[j], the row the next round's bind reads. Nothing
+    here waits for the card. Returns the last round's pending bind."""
+    pending = None
+    for j, mode in enumerate(modes):
+        n_half = live[mode] // 2
+        evd = first(n_half, mode) if pending is None else \
+            step(*pending, n_half, mode)
+        zkr.zk_round_tail(evd, st, carry, tape[j], out[j], tab_n, tab_1)
+        pending = (out[j, zkr.OUT_R], n_half, mode)
+        live[mode] //= 2
+    return pending
+
+
+def _scan_finish(transcript, host: np.ndarray, num_rounds: int):
+    """Decode the one download of a device-round sumcheck (transcript
+    state, the rounds' messages, the deltas) into the proof and the
+    challenges, and resync the host transcript to the card's state."""
+    tdev.set_host_state(transcript, host[:tdev.STATE_LEN])
+    n_out = num_rounds * zkr.OUT_ROWS * 16
+    out = host[tdev.STATE_LEN:tdev.STATE_LEN + n_out].reshape(
+        num_rounds, zkr.OUT_ROWS, 16)
+    deltas = host[tdev.STATE_LEN + n_out:].reshape(num_rounds, 32)
+
+    def encodings(rows):
+        return [bytes(e.astype(np.uint8)) for e in rows.reshape(-1, 32)]
+
+    z = mont_to_scalars(out[:, 6:10])
+    z_delta = mont_to_scalars(out[:, 10])
+    z_beta = mont_to_scalars(out[:, 11])
+    betas = encodings(out[:, 4:6])
+    proofs = [DotProductProof(d, b, z[4 * j:4 * j + 4], z_delta[j],
+                              z_beta[j])
+              for j, (d, b) in enumerate(zip(encodings(deltas), betas))]
+    proof = ZKSumcheckInstanceProof(encodings(out[:, 0:2]),
+                                    encodings(out[:, 2:4]), proofs)
+    return proof, mont_to_scalars(out[:, zkr.OUT_R])
 
 
 class SumcheckInstanceProof:
@@ -135,13 +214,18 @@ class ZKSumcheckInstanceProof:
 
     @staticmethod
     def _rounds(claim, blind_claim, num_rounds, modes, live, first, step,
-                gens_1, gens_n, transcript, random_tape):
-        """The host round loop shared by the provers. modes[j] is round j's
+                gens_1, gens_n, transcript, random_tape, device):
+        """The round loop shared by the provers. modes[j] is round j's
         axis; first(n_half, mode) and step(rm_prev, n_half_prev, mode_prev,
         n_half, mode) return the round's evaluations as (..., 3, 16): one
-        (e0, e2, e3) per part (a q-size class), summed on the host. Returns
-        the proof, the challenges, the last round's pending bind and the
-        final claim blind."""
+        (e0, e2, e3) per part (a q-size class), summed over the parts.
+        Returns the proof, the challenges, the last round's pending bind
+        and the final claim blind. The device-resident form when
+        `_device_rounds_on(device)`, else the host loop."""
+        if _device_rounds_on(device):
+            return ZKSumcheckInstanceProof._rounds_dev(
+                claim, blind_claim, num_rounds, modes, live, first, step,
+                gens_1, gens_n, transcript, random_tape, device)
         blinds_poly = random_tape.random_vector(b"blinds_poly", num_rounds)
         blinds_evals = random_tape.random_vector(b"blinds_evals", num_rounds)
         claim_per_round = claim
@@ -179,6 +263,41 @@ class ZKSumcheckInstanceProof:
         return (ZKSumcheckInstanceProof(comm_polys, comm_evals, proofs), r,
                 pending, blinds_evals[num_rounds - 1])
 
+    @staticmethod
+    def _rounds_dev(claim, blind_claim, num_rounds, modes, live, first, step,
+                    gens_1, gens_n, transcript, random_tape, device):
+        """The device-resident rounds (ops/zk_round.py): the tape values,
+        the transcript state and the claim go up in one copy; the deltas
+        and the claim's commitment are committed on the card (K10, K9);
+        every round is queued with no host sync (`_queue_rounds`); the
+        messages, deltas and transcript state come back in one copy."""
+        blinds_poly = random_tape.random_vector(b"blinds_poly", num_rounds)
+        blinds_evals = random_tape.random_vector(b"blinds_evals", num_rounds)
+        tape_np = _scan_prep(num_rounds, blinds_poly, blinds_evals,
+                             blind_claim, random_tape)
+        buf = torch.from_numpy(np.concatenate([
+            tdev.host_state(transcript),
+            fq.encode([claim, blind_claim]).ravel(),
+            tape_np.ravel()])).to(device)
+        st = buf[:tdev.STATE_LEN]
+        claim_blind = buf[tdev.STATE_LEN:tdev.STATE_LEN + 32].view(1, 2, 16)
+        tape = buf[tdev.STATE_LEN + 32:].view(num_rounds, zkr.TAPE_ROWS, 16)
+        tab_n, tab_1 = gens_n.comb_tables(device), gens_1.comb_tables(device)
+        carry = torch.empty((3, 16), dtype=torch.int32, device=device)
+        carry[0] = claim_blind[0, 0]
+        carry[1:] = rdev.compress(rdev.comb_commit(tab_1, claim_blind)) \
+            .view(2, 16)
+        tape[:, 9:11] = rdev.compress(rdev.comb_commit(
+            tab_n, tape[:, 3:8])).view(num_rounds, 2, 16)
+        out = torch.empty((num_rounds, zkr.OUT_ROWS, 16), dtype=torch.int32,
+                          device=device)
+        pending = _queue_rounds(modes, live, first, step, st, carry, tape,
+                                out, tab_n, tab_1)
+        host = torch.cat([st, out.flatten(),
+                          tape[:, 9:11].flatten()]).cpu().numpy()
+        proof, r = _scan_finish(transcript, host, num_rounds)
+        return proof, r, pending, blinds_evals[num_rounds - 1]
+
     # --- phase-1 prover (sumcheck.rs:1067-1381) ----------------------------
     @staticmethod
     def prove_cubic_with_additive_term_disjoint_rounds(
@@ -206,7 +325,7 @@ class ZKSumcheckInstanceProof:
 
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,
-            gens_1, gens_n, transcript, random_tape)
+            gens_1, gens_n, transcript, random_tape, B.device)
         if pending is not None:  # final bind for the last round
             rm_p, nh_p, mode_p = pending
             tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p)
@@ -237,8 +356,11 @@ class ZKSumcheckInstanceProof:
         so that the classes cover the p axis contiguously from p0. The
         shared eq tables fold once per round (eq_fold) before the class
         kernels (K5) read them; the p rounds run K4 on the classes merged
-        to one entry per instance. The JAX package's host loop; its
-        device-resident round scans are a later slice."""
+        to one entry per instance. Which classes are active in a round is
+        decided on the host from the round's n_half alone, so the rounds
+        run in either form of `_rounds`: on the card every round, x, q and
+        p, is device-resident (K11 after the class kernels, the classes'
+        evaluations summed inside K11)."""
         assert num_rounds == num_rounds_x_max + num_rounds_q_max + \
             num_rounds_p
         modes = ([MODE_X] * num_rounds_x_max + [MODE_Q] * num_rounds_q_max
@@ -311,7 +433,7 @@ class ZKSumcheckInstanceProof:
 
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,
-            gens_1, gens_n, transcript, random_tape)
+            gens_1, gens_n, transcript, random_tape, tp.device)
         if pending is None:
             merge(None, None)
         elif pending[2] == MODE_P:  # final bind for the last round
@@ -357,7 +479,7 @@ class ZKSumcheckInstanceProof:
 
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,
-            gens_1, gens_n, transcript, random_tape)
+            gens_1, gens_n, transcript, random_tape, Z.device)
         if pending is not None:  # final bind for the last round
             rm_p, nh_p, mode_p = pending
             tabs[:] = sck.p2_bind(*tabs, rm_p, nh_p, mode=mode_p,

@@ -12,6 +12,10 @@ card; a function built on K1's wrappers (eq tables, eq_fold, pc_bind, the
 ABC combination, SPARK's hash layer and product-tree folds, the rlc dot
 of ShiftProofs) also counts its launches under its own name. CPU tensors
 take the plain PyTorch versions and are not counted.
+
+K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
+Keccak permutation, ristretto compression, comb commitments and the round
+tail.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
-_HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "reduce.cuh")
-SOURCES = ("fq", "msm", "spmv", "sumcheck", "product", "uni")
+_HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "reduce.cuh",
+            "keccak.cuh", "ristretto.cuh", "zk_round.cuh")
+SOURCES = ("fq", "msm", "spmv", "sumcheck", "product", "uni", "zk_round")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -55,6 +60,11 @@ _ENTRIES = {
     "pt_layer_mul_launch": ("product", [_P, _P, _P, _P, _I64, _I64, _P]),
     "pt_cubic_launch": ("product", [_P] * 5 + [_I64, _I64, _I64, _P]),
     "fq_powers_launch": ("uni", [_P, _P, _I64, _P]),
+    "keccak_launch": ("zk_round", [_P, _P, _I64, _P]),
+    "compress_launch": ("zk_round", [_P, _P, _I64, _P]),
+    "comb_launch": ("zk_round", [_P, _I32, _P, _P, _I64, _P]),
+    "zk_round_tail_launch": ("zk_round", [_P, _I32, _P, _P, _P, _P, _P,
+                                          _I32, _P, _P]),
 }
 
 launches: dict = {}

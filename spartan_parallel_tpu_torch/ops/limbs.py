@@ -85,14 +85,27 @@ def cond_sub(a: torch.Tensor, m_limbs) -> torch.Tensor:
     return torch.where(d[..., -1:] < 0, a, d)
 
 
+# batches up to this many elements form all their limb products at once
+# (2 KiB an element); larger ones accumulate one row of products at a time
+MUL_COLS_SMALL = 1024
+
+
 def mul_cols(a: torch.Tensor, b: torch.Tensor, extra: int = 0) -> torch.Tensor:
     """Unnormalized product columns of two (..., 16) limb tensors
-    (broadcast over batch dims): (..., 32 + extra) int64."""
+    (broadcast over batch dims): (..., 32 + extra) int64. A small batch
+    adds its 256 limb products to their columns i + j in one index_add
+    (the round tail's scalars); a large one sums sixteen shifted rows,
+    whose peak is the output's size."""
     a = a.to(torch.int64)
     b = b.to(torch.int64)
     shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
     t = torch.zeros(shape + (2 * NLIMBS + extra,), dtype=torch.int64,
                     device=a.device)
+    if t[..., 0].numel() <= MUL_COLS_SMALL:
+        i = torch.arange(NLIMBS, device=a.device)
+        prod = a.unsqueeze(-1) * b.unsqueeze(-2)
+        return t.index_add_(-1, (i[:, None] + i).flatten(),
+                            prod.flatten(-2))
     for i in range(NLIMBS):
         t[..., i:i + NLIMBS] += a[..., i:i + 1] * b
     return t

@@ -384,14 +384,14 @@ def pc_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
 
 def pc_bind(B, C, D, r, n_half: int, mode: int, active: bool):
     """The class bind on the card: an active fold is K1's fq_bind (counted
-    as pc_bind), the inactive (1 - r) scale K1's fq_sub and fq_mul with a
-    broadcast scalar (counted as pc_bind_inactive)."""
+    as pc_bind); the inactive (1 - r) scale is K1's fq_bind of the pair
+    (T, 0), T + r (0 - T) (counted as pc_bind_inactive; no constant goes
+    up to the card inside a sumcheck)."""
     if B.device.type == "cpu":
         return pc_bind_plain(B, C, D, r, n_half, mode, active)
     if mode == MODE_Q and not active:
-        one = lb.to_device(fq.ONE_MONT, B.device)
-        omr = fq.sub(one, r.reshape(16), counter="pc_bind_inactive")
-        return tuple(fq.mul(t, omr, counter="pc_bind_inactive")
+        return tuple(fq.bind(torch.stack([t, torch.zeros_like(t)]), r, 0, 1,
+                             1, counter="pc_bind_inactive")[0]
                      for t in (B, C, D))
     return tuple(fq.bind(t, r, _PC_AXIS[mode], int(n_half),
                          counter="pc_bind") for t in (B, C, D))

@@ -318,3 +318,83 @@ def test_counter_snark_card_matches_cpu(dev):
         ex.verify_counter(proof, pa, ctx, device=d)
         out.append(ser.serialize(proof, "SNARK"))
     assert out[0] == out[1]
+
+
+def test_zk_round_kernels(dev):
+    """K8-K11 against their plain versions: Keccak on 37 states, ENCODE of
+    random points and the identity, comb commitments of 4 G + h and G + h
+    with a zero scalar, and one round tail over two table sets."""
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.ops import ristretto_dev as rdev
+    from spartan_parallel_tpu_torch.ops import transcript_dev as tdev
+    from spartan_parallel_tpu_torch.ops import zk_round as zkr
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    st = torch.randint(0, 256, (37, 200), generator=g, device=dev,
+                       dtype=torch.int32)
+    assert torch.equal(tdev.permute(st), tdev.permute_plain(st))
+    tabs = [MultiCommitGens(n, b"gpu_zk").comb_tables(dev) for n in (4, 1)]
+    for tab in tabs:
+        sc = rand_field((3, tab.shape[0]), dev, 8)
+        sc[1, 0] = 0
+        pts = rdev.comb_commit(tab, sc)
+        assert torch.equal(pts, rdev.comb_commit_plain(tab, sc))
+        pts = torch.cat([pts, torch.as_tensor(curve.identity((1,)),
+                                              device=dev)])
+        assert torch.equal(rdev.compress(pts), rdev.compress_plain(pts))
+    st0 = tdev.from_host(Transcript(b"gpu_zk"), dev)
+    carry = torch.cat([rand_field((1,), dev, 9), rand_field((2,), dev, 10)
+                       & 0xFF])
+    tape = torch.cat([rand_field((9,), dev, 11), rand_field((2,), dev, 12)
+                      & 0xFF])
+    evs = rand_field((2, 3), dev, 13)
+    out = []
+    for fn in (zkr.zk_round_tail, zkr.zk_round_tail_plain):
+        bufs = [st0.clone(), carry.clone(),
+                torch.zeros((zkr.OUT_ROWS, 16), dtype=torch.int32,
+                            device=dev)]
+        fn(evs, bufs[0], bufs[1], tape, bufs[2], *tabs)
+        out.append(torch.cat([b.flatten() for b in bufs]))
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("num_proofs", [[8, 2, 1], [2, 2, 2, 2]])
+def test_device_rounds_match_host_loop(dev, monkeypatch, num_proofs):
+    """The data-parallel R1CSProof at 16 x 16 x 4 on the card: the
+    device-resident rounds (the default) and the host loop
+    (models/sumcheck.py _device_rounds_on patched off) give the same
+    bytes."""
+    from spartan_parallel_tpu_torch import serialization as ser
+    from spartan_parallel_tpu_torch.models import r1csproof as rp
+    from spartan_parallel_tpu_torch.models import sumcheck as msum
+    from spartan_parallel_tpu_torch.models.r1csinstance import (
+        produce_synthetic_r1cs,
+    )
+    from spartan_parallel_tpu_torch.ops import kernels
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    P, qmax = len(num_proofs), max(num_proofs)
+    inst, vm, im = produce_synthetic_r1cs(P, num_proofs, 16, 16, 4,
+                                          seed=13, device=dev)
+    io = [[[1] + list(v) + [0] * (15 - len(v)) for v in im[p]]
+          for p in range(P)]
+    secs = [rp.ProverWitnessSecInfo.from_scalars([16] * P, m, dev)
+            for m in (vm, io)]
+    gens = rp.R1CSGens(b"gpu_dp", 16, qmax * 16)
+    out = []
+    for on_card in (True, False):
+        if not on_card:
+            monkeypatch.setattr(msum, "_device_rounds_on", lambda d: False)
+        before = kernels.launches.get("zk_round_tail", 0)
+        proof, _ = rp.R1CSProof.prove(
+            P, qmax, num_proofs, 16, [16] * P, secs, inst, gens,
+            Transcript(b"t"), RandomTape(b"proof", seed=b"\x0b" * 32), dev)
+        tails = kernels.launches.get("zk_round_tail", 0) - before
+        rounds = len(proof.sc_proof_phase1.comm_polys) + \
+            len(proof.sc_proof_phase2.comm_polys)
+        assert tails == (rounds if on_card else 0)
+        out.append(ser.serialize(proof, "R1CSProof"))
+    assert out[0] == out[1]

@@ -1,7 +1,9 @@
 """The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh,
-curve.cuh) built for the host with g++ (csrc/host_check.cpp) and held
-against the port's plain PyTorch versions on random inputs. Only the
-launch code of the kernels stays unchecked on a host without a card."""
+curve.cuh) and the device round's transcript, encoding, comb commitment
+and tail (csrc/keccak.cuh, ristretto.cuh, zk_round.cuh) built for the host
+with g++ (csrc/host_check.cpp) and held against the port's plain PyTorch
+versions and host oracles on random inputs. Only the launch code of the
+kernels stays unchecked on a host without a card."""
 
 import ctypes
 import os
@@ -14,7 +16,13 @@ import torch
 
 from spartan_parallel_tpu_torch.core.consts import L, P
 from spartan_parallel_tpu_torch.core.edwards import RistrettoPoint
+from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
 from spartan_parallel_tpu_torch.ops import curve, fp, fq
+from spartan_parallel_tpu_torch.ops import ristretto_dev as rdev
+from spartan_parallel_tpu_torch.ops import transcript_dev as tdev
+from spartan_parallel_tpu_torch.ops import zk_round as zkr
+from spartan_parallel_tpu_torch.utils.keccak import keccak_f1600
+from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "spartan_parallel_tpu_torch", "csrc")
@@ -37,6 +45,14 @@ def lib(tmp_path_factory):
     lib.host_fp_mul.argtypes = [vp, vp, vp, n]
     lib.host_pt_add.argtypes = [vp, vp, vp, n]
     lib.host_pt_double.argtypes = [vp, vp, n]
+    lib.host_keccak.argtypes = [vp, vp, n]
+    lib.host_strobe_op.argtypes = [vp, ctypes.c_int, vp, vp, n,
+                                   ctypes.c_int]
+    lib.host_challenge_scalar.argtypes = [vp, ctypes.c_char_p, vp]
+    lib.host_from_bytes_wide.argtypes = [vp, vp, n]
+    lib.host_compress.argtypes = [vp, vp, n]
+    lib.host_comb.argtypes = [vp, n, vp, vp, n]
+    lib.host_zk_round_tail.argtypes = [vp, n, vp, vp, vp, vp, vp, vp]
     return lib
 
 
@@ -102,3 +118,101 @@ def test_point_add_and_double(lib):
     lib.host_pt_double(ptr(p), ptr(out), len(pts))
     assert np.array_equal(out, curve.point_double(
         torch.from_numpy(p)).numpy())
+
+
+def test_keccak_and_strobe(lib):
+    """Keccak-f[1600] against the plain version and the host permutation;
+    a random meta_ad / ad / prf schedule (lengths across the 166-byte
+    block, continued operations) and challenge_scalar against the host
+    transcript, state and outputs after every step."""
+    st = rng.integers(0, 256, (4, 200)).astype(np.int32)
+    out = np.zeros_like(st)
+    lib.host_keccak(ptr(st), ptr(out), 4)
+    assert np.array_equal(out, tdev.permute(torch.from_numpy(st)).numpy())
+    lanes = [int.from_bytes(st[0, 8 * i:8 * i + 8].astype(np.uint8)
+                            .tobytes(), "little") for i in range(25)]
+    assert out[0].astype(np.uint8).tobytes() == b"".join(
+        v.to_bytes(8, "little") for v in keccak_f1600(lanes))
+
+    t = Transcript(b"headers")
+    io = tdev.host_state(t)
+    prev = None
+    for _ in range(60):
+        op = int(rng.integers(3))
+        k = int(rng.choice([0, 1, 2, 31, 64, 165, 166, 167, 300]))
+        more = op == prev and bool(rng.integers(2))
+        data = rng.integers(0, 256, max(k, 1)).astype(np.uint8)
+        got = np.zeros(max(k, 1), dtype=np.uint8)
+        lib.host_strobe_op(ptr(io), op, ptr(data), ptr(got), k, int(more))
+        sb = t.strobe
+        if op == 0:
+            sb.meta_ad(data[:k].tobytes(), more)
+        elif op == 1:
+            sb.ad(data[:k].tobytes(), more)
+        else:
+            assert got[:k].tobytes() == sb.prf(k, more)
+        assert np.array_equal(io, tdev.host_state(t))
+        prev = op
+    c = np.zeros(16, dtype=np.int32)
+    lib.host_challenge_scalar(ptr(io), b"probe", ptr(c))
+    assert fq.decode(c) == [int(t.challenge_scalar(b"probe"))]
+    assert np.array_equal(io, tdev.host_state(t))
+
+
+def test_from_bytes_wide(lib):
+    """The challenge reduction with halves >= l, up to all-0xFF."""
+    wide = [rng.bytes(64), b"\xff" * 64, b"\x00" * 32 + b"\xff" * 32,
+            L.to_bytes(32, "little") * 2]
+    by = np.frombuffer(b"".join(wide), np.uint8).astype(np.int32)
+    out = np.zeros((len(wide), 16), dtype=np.int32)
+    lib.host_from_bytes_wide(ptr(by), ptr(out), len(wide))
+    assert fq.decode(out) == [int.from_bytes(w, "little") % L for w in wide]
+    assert np.array_equal(out, tdev.from_bytes_wide(
+        torch.from_numpy(by.reshape(-1, 64))).numpy())
+
+
+def test_compress_and_comb(lib):
+    """ENCODE against the plain version and the host (random points, the
+    identity); comb commitments of 4 G + h against the plain version, limb
+    for limb (the same order of additions), with a zero scalar."""
+    B0 = RistrettoPoint.basepoint()
+    pts = [B0.scalar_mul(x) for x in rand_mod(L, 6)[3:]] + \
+        [RistrettoPoint.identity()]
+    arr = curve.encode_points(pts)
+    out = np.zeros((len(pts), 32), dtype=np.int32)
+    lib.host_compress(ptr(arr), ptr(out), len(pts))
+    assert np.array_equal(out, rdev.compress(torch.from_numpy(arr)).numpy())
+    assert [bytes(o.astype(np.uint8)) for o in out] == \
+        [p.compress() for p in pts]
+    gens = MultiCommitGens(4, b"headers_comb")
+    tab = rdev.make_comb_tables(gens.G + [gens.h])
+    sm = fq.encode(rand_mod(L, 10)).reshape(2, 5, 16)
+    sm[1, 2] = 0
+    got = np.zeros((2, 4, 16), dtype=np.int32)
+    lib.host_comb(ptr(tab), 5, ptr(sm), ptr(got), 2)
+    want = rdev.comb_commit(torch.from_numpy(tab), torch.from_numpy(sm))
+    assert np.array_equal(got, want.numpy())
+
+
+def test_round_tail(lib):
+    """K11's round tail (two table sets) against the plain tail on the
+    same buffers: transcript state, carry and messages, exact."""
+    gens_n = MultiCommitGens(4, b"headers_tail")
+    gens_1 = MultiCommitGens(1, b"headers_tail_1")
+    tab_n = rdev.make_comb_tables(gens_n.G + [gens_n.h])
+    tab_1 = rdev.make_comb_tables(gens_1.G + [gens_1.h])
+    evs = fq.encode(rand_mod(L, 6)).reshape(2, 3, 16)
+    st = tdev.host_state(Transcript(b"headers_tail"))
+    carry = np.concatenate([fq.encode(rand_mod(L, 6)[5:]),
+                            rng.integers(0, 256, (2, 16))]).astype(np.int32)
+    tape = np.concatenate([fq.encode(rand_mod(L, 9)),
+                           rng.integers(0, 256, (2, 16))]).astype(np.int32)
+    out = np.zeros((zkr.OUT_ROWS, 16), dtype=np.int32)
+    bufs = [torch.from_numpy(a.copy()) for a in (st, carry, out)]
+    lib.host_zk_round_tail(ptr(evs), 2, ptr(st), ptr(carry), ptr(tape),
+                           ptr(out), ptr(tab_n), ptr(tab_1))
+    zkr.zk_round_tail(torch.from_numpy(evs), bufs[0], bufs[1],
+                      torch.from_numpy(tape), bufs[2],
+                      torch.from_numpy(tab_n), torch.from_numpy(tab_1))
+    for got, want in zip((st, carry, out), bufs):
+        assert np.array_equal(got, want.numpy())

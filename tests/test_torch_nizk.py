@@ -2,7 +2,10 @@
 variables x 4 inputs (as in tests/test_r1cs.py) through the port on the
 CPU must serialize to the JAX package's bytes, each package's verifier
 must accept the other's proof (each parsing it with its own
-serialization.py), and a tampered proof must be rejected."""
+serialization.py), and a tampered proof must be rejected. The same with
+every sumcheck round device-resident (torch_shared.device_rounds: the
+plain round tail of ops/zk_round.py on the CPU) against the JAX host
+loop's bytes."""
 
 import pytest
 
@@ -19,7 +22,7 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import shared_result
+from .torch_shared import device_rounds, in_fresh_process, shared_result
 
 SEED = b"\x05" * 32
 
@@ -47,6 +50,20 @@ def port_run():
     proof = tnizk.NIZK.prove(inst, vm[0][0], im[0][0], gens,
                              Transcript(b"nizk_example"),
                              RandomTape(b"proof", seed=SEED), device="cpu")
+    return inst, gens, im[0][0], tser.serialize(proof, "NIZK")
+
+
+@pytest.fixture(scope="module")
+def port_run_dev():
+    """The port's NIZK with device-resident rounds on the CPU."""
+    with device_rounds():
+        inst, vm, im = tri.produce_synthetic_r1cs(1, [1], 16, 16, 4,
+                                                  device="cpu")
+        gens = tnizk.NIZKGens(16, 16, device="cpu")
+        proof = tnizk.NIZK.prove(inst, vm[0][0], im[0][0], gens,
+                                 Transcript(b"nizk_example"),
+                                 RandomTape(b"proof", seed=SEED),
+                                 device="cpu")
     return inst, gens, im[0][0], tser.serialize(proof, "NIZK")
 
 
@@ -81,5 +98,45 @@ def test_port_rejects_tampered_proof(port_run, tamper):
     else:
         inputs = [(inputs[0] + 1) % L] + list(inputs[1:])
     with pytest.raises((ProofVerifyError, AssertionError)):
+        proof.verify(inst, inputs, gens, Transcript(b"nizk_example"),
+                     device="cpu")
+
+
+def jax_verify(raw: bytes) -> bool:
+    """The JAX package's verifier on a serialized NIZK of the fixture's
+    statement (run in a fresh process: see tests/torch_shared.py)."""
+    inst, _, im = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4)
+    jser.deserialize(raw, "NIZK").verify(inst, im[0][0],
+                                         jnizk.NIZKGens(16, 16),
+                                         JTranscript(b"nizk_example"))
+    return True
+
+
+def test_device_rounds_match_jax(jax_run, port_run_dev):
+    """Device-resident rounds give the JAX host loop's bytes, and both
+    packages verify the proof."""
+    assert port_run_dev[3] == jax_run[3]
+    inst, gens, inputs, raw = port_run_dev
+    tser.deserialize(raw, "NIZK").verify(
+        inst, inputs, gens, Transcript(b"nizk_example"), device="cpu")
+    assert in_fresh_process(jax_verify, raw)
+
+
+@pytest.mark.parametrize("tamper", ["comm_poly_byte", "z"])
+def test_port_rejects_tampered_device_round(port_run_dev, tamper):
+    """A flipped byte in a device round's comm_poly, or a changed z of its
+    DotProductProof, is rejected (an encoding that no longer decodes
+    raises ValueError)."""
+    inst, gens, inputs, raw = port_run_dev
+    proof = tser.deserialize(raw, "NIZK")
+    sc = proof.r1cs_sat_proof.sc_proof_phase2
+    if tamper == "comm_poly_byte":
+        c = bytearray(sc.comm_polys[1])
+        c[5] ^= 0x10
+        sc.comm_polys[1] = bytes(c)
+    else:
+        dp = sc.proofs[1]
+        dp.z[2] = dp.z[2] + dp.z[0]
+    with pytest.raises((ProofVerifyError, AssertionError, ValueError)):
         proof.verify(inst, inputs, gens, Transcript(b"nizk_example"),
                      device="cpu")

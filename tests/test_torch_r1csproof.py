@@ -6,12 +6,16 @@ serialize to the JAX package's bytes under the same tape, return the same
 challenge vectors and leave the transcript in the same state, each
 package's verifier must accept the other's proof, the port's dense layout
 must give the classed layout's bytes, and tampered proofs must be
-rejected. Tolerance: exact equality."""
+rejected; with device-resident rounds (torch_shared.device_rounds, the
+plain round tail on the CPU) the same bytes, challenges and transcript
+state.
+Tolerance: exact equality."""
 
 import numpy as np
 import pytest
 
 from spartan_parallel_tpu import serialization as jser
+from spartan_parallel_tpu.core.field import Scalar as JScalar
 from spartan_parallel_tpu.models import r1csinstance as jri
 from spartan_parallel_tpu.models import r1csproof as jrp
 from spartan_parallel_tpu.utils.random_tape import RandomTape as JTape
@@ -24,7 +28,7 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import shared_result
+from .torch_shared import device_rounds, in_fresh_process, shared_result
 
 NP = [8, 2, 1]
 P, NV, QMAX = 3, 16, 8
@@ -44,6 +48,10 @@ def ints(r):
 
 @pytest.fixture(scope="module")
 def jax_statement():
+    return make_jax_statement()
+
+
+def make_jax_statement():
     inst, vm, im = jri.produce_synthetic_r1cs(P, NP, 16, NV, 4, seed=13)
     secs = [jrp.ProverWitnessSecInfo.from_scalars([NV] * P, m)
             for m in (vm, io_rows(im, NP))]
@@ -113,6 +121,14 @@ def port_proof(port_statement):
     return port_prove(port_statement)
 
 
+@pytest.fixture(scope="module")
+def port_proof_dev(port_statement):
+    """The classed proof with device-resident rounds on the CPU (the plain
+    round tail of ops/zk_round.py)."""
+    with device_rounds():
+        return port_prove(port_statement)
+
+
 def test_convert_carries_the_statement(jax_statement, port_statement):
     assert port_statement[0].get_digest() == jax_statement[0].get_digest()
     assert [[c.C for c in v.comm_w] for v in port_statement[3]] == \
@@ -123,6 +139,32 @@ def test_classed_proof_matches_jax(jax_proof, port_proof):
     assert port_proof[1] == jax_proof[1], "challenge vectors differ"
     assert port_proof[2] == jax_proof[2], "transcript states differ"
     assert port_proof[0] == jax_proof[0], "proof bytes differ"
+
+
+def test_device_rounds_match_jax(jax_proof, port_statement, port_proof_dev):
+    """Device-resident rounds give the JAX host loop's bytes, challenges
+    and transcript state; both packages verify the proof."""
+    assert port_proof_dev[1] == jax_proof[1], "challenge vectors differ"
+    assert port_proof_dev[2] == jax_proof[2], "transcript states differ"
+    assert port_proof_dev[0] == jax_proof[0], "proof bytes differ"
+    proof = tser.deserialize(port_proof_dev[0], "R1CSProof")
+    assert ints(port_verify(port_statement, proof, port_proof_dev[3])) == \
+        jax_proof[1]
+    assert in_fresh_process(jax_verify, port_proof_dev[0],
+                            port_proof_dev[1]) == jax_proof[1]
+
+
+def jax_verify(raw: bytes, r_ints):
+    """The JAX package's verifier on a serialized classed proof of the
+    fixture's statement, at the point r_ints (run in a fresh process: see
+    tests/torch_shared.py); returns its challenge vectors."""
+    inst, _, gens, comms = make_jax_statement()
+    rp, _, rx, ry = ([JScalar(x) for x in v] for v in r_ints)
+    _, bound = inst.multi_evaluate_bound_rp(rp, rx, ry)
+    views = [jrp.VerifierWitnessSecInfo(NP, [NV] * P, c) for c in comms]
+    out = jser.deserialize(raw, "R1CSProof").verify(
+        P, QMAX, NP, NV, views, 16, gens, bound, JTranscript(LABEL))
+    return ints(out)
 
 
 def test_port_verifies_jax_proof(jax_proof, port_statement, port_proof):

@@ -36,7 +36,7 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import shared_result
+from .torch_shared import device_rounds, shared_result
 
 TAPE = b"\x07" * 32
 LABEL = b"snark_example"
@@ -103,8 +103,7 @@ def jax_run(tmp_path_factory):
     return shared_result(tmp_path_factory, "jax_snark_counter", prove)
 
 
-@pytest.fixture(scope="module")
-def port_run():
+def prove_port():
     args, pa = tex.build_counter_program()
     ctx = tex.setup_counter_instances(args, device="cpu")
     tp = Transcript(LABEL)
@@ -113,6 +112,19 @@ def port_run():
                         device="cpu")
     return {"pa": pa, "ctx": ctx, "bytes": tser.serialize(proof, "SNARK"),
             "probe": int(tp.challenge_scalar(b"probe"))}
+
+
+@pytest.fixture(scope="module")
+def port_run():
+    return prove_port()
+
+
+@pytest.fixture(scope="module")
+def port_run_dev():
+    """The port's counter SNARK with device-resident sumcheck rounds on the
+    CPU (the plain round tail of ops/zk_round.py, ~40 s)."""
+    with device_rounds():
+        return prove_port()
 
 
 def port_verify(run, raw, **changes):
@@ -133,6 +145,15 @@ def test_snark_matches_jax(jax_run, port_run):
     _, _, raw, probe = jax_run
     assert port_run["probe"] == probe, "transcript states differ"
     assert port_run["bytes"] == raw, "proof bytes differ"
+
+
+def test_device_rounds_match_jax(jax_run, port_run_dev):
+    """Device-resident rounds give the JAX host loop's bytes and transcript
+    state, and the port verifies the proof."""
+    _, _, raw, probe = jax_run
+    assert port_run_dev["probe"] == probe, "transcript states differ"
+    assert port_run_dev["bytes"] == raw, "proof bytes differ"
+    port_verify(port_run_dev, port_run_dev["bytes"])
 
 
 def test_port_verifies_jax_proof(jax_run, port_run):

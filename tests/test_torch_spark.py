@@ -35,7 +35,7 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import shared_result
+from .torch_shared import device_rounds, in_fresh_process, shared_result
 
 N, NUM_INPUTS = 16, 4
 TAPE = b"\x09" * 32
@@ -83,8 +83,7 @@ def jax_run(tmp_path_factory):
                                                "jax_snark_single", prove)
 
 
-@pytest.fixture(scope="module")
-def port_run():
+def prove_port():
     inst, vm, im = tri.produce_synthetic_r1cs(1, [1], N, N, NUM_INPUTS,
                                               device="cpu")
     gens = tss.SpartanSNARKGens(N, N, nnz(inst))
@@ -97,6 +96,18 @@ def port_run():
             "comm_bytes": tser.serialize(comm, "R1CSCommitment"),
             "bytes": tser.serialize(proof, "SpartanSNARK"),
             "r": ints(proof.r), "probe": int(tp.challenge_scalar(b"probe"))}
+
+
+@pytest.fixture(scope="module")
+def port_run():
+    return prove_port()
+
+
+@pytest.fixture(scope="module")
+def port_run_dev():
+    """The port's SNARK with device-resident sumcheck rounds on the CPU."""
+    with device_rounds():
+        return prove_port()
 
 
 def port_verify(run, raw, inputs=None):
@@ -115,6 +126,29 @@ def test_snark_matches_jax(jax_run, port_run):
     assert port_run["r"] == r, "evaluation points differ"
     assert port_run["probe"] == probe, "transcript states differ"
     assert port_run["bytes"] == raw, "proof bytes differ"
+
+
+def test_device_rounds_match_jax(jax_run, port_run_dev):
+    """Device-resident rounds give the JAX host loop's commitment, bytes,
+    point and transcript state; both packages verify the proof."""
+    comm_raw, raw, r, probe = jax_run[3]
+    assert port_run_dev["comm_bytes"] == comm_raw
+    assert port_run_dev["r"] == r, "evaluation points differ"
+    assert port_run_dev["probe"] == probe, "transcript states differ"
+    assert port_run_dev["bytes"] == raw, "proof bytes differ"
+    port_verify(port_run_dev, port_run_dev["bytes"])
+    assert in_fresh_process(jax_verify, comm_raw, port_run_dev["bytes"])
+
+
+def jax_verify(comm_raw: bytes, raw: bytes) -> bool:
+    """The JAX package's verifier on a serialized SNARK of the fixture's
+    statement (run in a fresh process: see tests/torch_shared.py)."""
+    inst, _, im = jri.produce_synthetic_r1cs(1, [1], N, N, NUM_INPUTS)
+    gens = jss.SpartanSNARKGens(N, N, nnz(inst))
+    jser.deserialize(raw, "SpartanSNARK").verify(
+        jser.deserialize(comm_raw, "R1CSCommitment"), im[0][0], gens,
+        JTranscript(LABEL))
+    return True
 
 
 def test_port_verifies_jax_proof(jax_run, port_run):
