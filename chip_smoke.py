@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
      [8, 2, 1] times (the classed layout) and P = 4 executed [2, 2, 2, 2]
      times (the dense layout), and the SpartanSNARK (SPARK) at 16 x 16 x 4;
   4. the NIZK at 2^20 x 2^20 x 10 inputs (the upstream README instance)
-     on the card: prove, verify, reject a tampered proof, per-stage times,
+     on the card, under a fixed tape (phase 9 proves the same bytes on
+     two ranks): prove, verify, reject a tampered proof, per-stage times,
      proof bytes, peak memory and each kernel's launches;
   5. the data-parallel R1CSProof of BASELINE config 4 (bench.py bench_dp
      at 2^20 sigma work): P = 4 blocks of 2^10 constraints x 2^10
@@ -42,14 +43,32 @@ Phases, each printing one JSON line:
      constraints executed 64/16/16/16/4/4/4/2/2 times), not cut: set-up
      with encode, prove, verify, and a wrong output must be rejected; the
      stage Timers under upstream's names beside upstream's prove and
-     verify, proof bytes, peak memory and launches.
+     verify, proof bytes, peak memory and launches;
+  9. the prover split over ranks (spartan_parallel_tpu_torch
+     _dryrun_stages.launch: spawned processes in one torch.distributed
+     group, each running p9_rank): two ranks sharing the card over gloo
+     run the q-sharded phase-1 round at the dryrun tables (2, 8, 8), the
+     sharded MSM at 1024 points x 1024 rows, the NIZK 2^20 (phase 4's
+     tape; its first split round is the (1, 1, 2^20) round), config 4
+     skewed (phase 5's) and the counter SNARK (phase 3's); four ranks as
+     a 2 x 2 mesh the 2_nizk stage's NIZK (64 x 64 x 4); one rank over
+     NCCL the round and the 2^10 NIZK (phase 3's), with every
+     device-round loop under set_sync_debug_mode("error"). Every rank's
+     proof must equal the single-rank proof byte for byte (rounds and
+     MSM: the single-rank results computed here), and each sumcheck of a
+     proof must have run its expected number of rounds on split tables;
+     each line gives the per-rank prove seconds, K2/K4/K5/K11/K12
+     launches, split rounds, collectives and their seconds, and the
+     backend.
 Phase 2 also holds K7 (the powers of the shift proofs' challenge) and the
 rlc dot at the find_min path's shape and K7 at 2^20, and the
 device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
 states; a check kernel, its code runs on the path inside K11), K9
 (ristretto ENCODE) and K10 (comb commitments) at the NIZK 2^20's shapes
 (a sumcheck's 20 deltas of 4 G + h and its claim of G + h) and at 4096
-points and 1024 commitments, and K11 (one round tail). Phase 3 also
+points and 1024 commitments, K11 (one round tail), K12 (the sum of
+the sharded MSM's per-rank partials, at two and four ranks) and K13
+(k * P at 32 and 4096 points; no path calls it). Phase 3 also
 proves the 9-stage SNARK of the counter program, and the memory fixture
 tests/fixtures/counter_mem_bin.{ctk,rtk} read by the port's driver (as it
 is, and with its inputs widened to 5, which its virtual memory needs to
@@ -65,7 +84,8 @@ device rounds again after the host loop (the first prove of a call is
 slower), then once more in each form with each stage's SAT and eval
 proofs timed.
 Each of phases 4-8 sets the launch counts to 0 before each run and reads
-them after; every kernel row must have been launched on its path. Then the
+them after (phase 9's ranks before and after each job); every kernel row
+but K13's must have been launched on its path. Then the
 kernel table as one JSON line, the card line, and last {"ok": true,
 "device": {...}}. Any failure exits non-zero before that.
 
@@ -197,16 +217,21 @@ def check_kernels(log_n: int, dev, reps: int):
     rows, paths = [], {}
 
     def record(name, source, replaces, kern, plain, err_fn, nbytes, imads,
-               reps_k=reps, path="nizk", counter=None, extra=None):
+               reps_k=reps, path="nizk", counter=None, extra=None,
+               plain_once=False):
         """Time one kernel against its plain version. Its launches are
         read later from `counter` (default: its name) in the run of
-        `path`."""
+        `path`. plain_once: the plain version's time is that of the call
+        whose result is compared (for plain versions that take seconds)."""
         got = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         want = plain()
         torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
         err = err_fn(got, want)
         ms = cuda_ms(kern, reps_k)
-        plain_ms = wall_ms(plain)
+        plain_ms = first_ms if plain_once else wall_ms(plain)
         b_ms, b_by = bound(nbytes, imads)
         row = {"name": name, "route": "cuda",
                "source": "spartan_parallel_tpu_torch/csrc/" + source,
@@ -336,7 +361,112 @@ def check_kernels(log_n: int, dev, reps: int):
     check_spark_kernels(log_n, dev, gen, record, E)
     check_uni_kernels(dev, gen, record, E)
     check_zk_kernels(dev, gen, record)
+    check_parallel_kernels(dev, record, pts)
     return rows, paths
+
+
+# the kernel that no path of the JAX package, and so none of the port,
+# calls: held against its plain version, launched on no path
+NO_PATH = {"scale_points": "no caller in the JAX package "
+                           "(spartan_parallel_tpu/ops/curve.py:178)"}
+
+
+def check_parallel_kernels(dev, record, pts):
+    """The per-rank kernels of the sharded round and MSM at the shares
+    their phase-9 runs give a rank; K12 (point_sum: the sum of the sharded MSM's per-rank partials)
+    at (D, B) = (2, 1024) (the NIZK 2^20's witness commit on two ranks),
+    (4, 1024) and (2, 512) (config 4's largest block commit on two ranks);
+    K13 (scale_points) at 32 and 4096 points, held for k = 0, 1, l - 1 and
+    timed at a seeded random k. Exact limbs: both follow the plain
+    versions' order of additions. Bytes: the points read and written;
+    operations: the additions (K12's halving tree, identity pads
+    included) and K13's 253 doublings and popcount(k) additions."""
+    import numpy as np
+    import torch
+
+    from spartan_parallel_tpu_torch.core.consts import L
+    from spartan_parallel_tpu_torch.ops import curve
+
+    from spartan_parallel_tpu_torch.ops import fq, msm
+    from spartan_parallel_tpu_torch.ops import limbs as lb
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    # the work of one of two ranks in the sharded round at the NIZK
+    # 2^20's first phase-1 round, (1, 1, 2^20) split along x: K4's
+    # evaluations on the rank's (1, 1, 2^19) share, and the exact sum of
+    # the two ranks' (3, 16) evaluations (K1 fq_dot, mesh.sum_partials)
+    E = 64  # bytes of one field element (16 int32 limbs)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    n = 1 << (LOG_KERNEL - 1)
+    one = lb.to_device(fq.ONE_MONT, dev)[None]
+    tx = rand_field((n,), g, dev)
+    B, C, D = (rand_field((1, 1, n), g, dev) for _ in range(3))
+    record("sc_p1_round_share", "sumcheck.cu",
+           "spartan_parallel_tpu/parallel/mesh.py:68",
+           lambda: sck.p1_evals(one, one, tx, B, C, D, n // 2, sck.MODE_X),
+           lambda: sck.p1_evals_plain(one, one, tx, B, C, D, n // 2,
+                                      sck.MODE_X), field_err,
+           4 * n * E + 3 * E, p1_muls(n // 2, 1) * IMAD_FQ_MUL,
+           counter="sc_p1_round", path="multi_device",
+           extra={"share_of": [1, 1, 2 * n], "ranks": 2})
+    parts = rand_field((2, 3), g, dev)
+    record("sum_partials", "fq.cu", "spartan_parallel_tpu/parallel/mesh.py:68",
+           lambda: fq.sum_reduce(parts, 0), lambda: fq.sum_plain(parts, 0),
+           field_err, 9 * E, 6 * IMAD_FQ_MUL, counter="fq_dot",
+           path="multi_device", extra={"ranks": 2})
+    # one of two ranks' block of the sharded MSM at 1024 points x 1024
+    # rows (the NIZK 2^20's witness commit): K2 on 512 points
+    half = pts.shape[0] // 2
+    scal = rand_field((2 * half, half), g, dev)
+    nz = sum(int((((scal[..., w >> 1] >> ((w & 1) * 8)) & 0xFF) != 0).sum())
+             for w in range(32))
+    adds = nz + 2 * half * (32 * 2 * 256 + 31)
+    msm_imads = (adds * FP_MUL_PER_ADD + 2 * half * 31 * 8 *
+                 FP_MUL_PER_DOUBLE) * IMAD_FP_MUL
+    record("msm_share", "msm.cu",
+           "spartan_parallel_tpu/parallel/msm_sharded.py:40",
+           lambda: msm.msm_dev(pts[:half], scal),
+           lambda: msm.msm_plain(pts[:half], scal), point_err,
+           half * 256 + 2 * half * half * E + 2 * half * 256, msm_imads,
+           reps_k=3, counter="msm_batched", path="multi_device",
+           plain_once=True, extra={"share_of": [2 * half, 2 * half],
+                                   "ranks": 2})
+
+    jax_curve = "spartan_parallel_tpu/ops/curve.py"
+    for name, d, b in (("point_sum", 2, 1024), ("point_sum_4x1024", 4, 1024),
+                       ("point_sum_2x512", 2, 512)):
+        parts = torch.stack([torch.roll(pts[:b], k, 0) for k in range(d)])
+        adds, n = 0, d
+        while n > 1:
+            adds, n = adds + (n + 1) // 2, (n + 1) // 2
+        record(name, "msm.cu", jax_curve + ":109",
+               lambda parts=parts: curve.point_sum(parts),
+               lambda parts=parts: curve.tree_sum(parts, 0), field_err,
+               (d + 1) * b * 256, b * adds * FP_MUL_PER_ADD * IMAD_FP_MUL,
+               counter="point_sum", path="multi_device",
+               extra={"parts": d, "batch": b})
+    rng = np.random.default_rng(13)
+    k_rand = int.from_bytes(rng.bytes(40), "little") % L
+    for name, n in (("scale_points", 32), ("scale_points_4096", 4096)):
+        p = torch.cat([torch.roll(pts, k, 0) for k in range(4)])[:n]
+        p = p.contiguous()
+        for k in (0, 1, L - 1):
+            err = field_err(curve.scale_points(p, k), curve.scale_points_plain(
+                p, curve.scalar_limbs([k], dev)[0]))
+            if err:
+                raise AssertionError(f"{name} at k = {k}: kernel disagrees "
+                                     f"with its plain version ({err})")
+        kl = curve.scalar_limbs([k_rand], dev)[0]
+        ops = n * (253 * FP_MUL_PER_DOUBLE + bin(k_rand).count("1")
+                   * FP_MUL_PER_ADD) * IMAD_FP_MUL
+        record(name, "msm.cu", jax_curve + ":144",
+               lambda p=p: curve.scale_points(p, k_rand),
+               lambda p=p, kl=kl: curve.scale_points_plain(p, kl),
+               field_err, 2 * n * 256 + E_SCALAR, ops, reps_k=5,
+               counter="scale_points", plain_once=True,
+               extra={"batch": n, "also_exact_for_k": ["0", "1", "l - 1"],
+                      "off_path": NO_PATH["scale_points"]})
 
 
 def check_dp_kernels(dev, gen, record, cmp_step, E):
@@ -568,6 +698,7 @@ FP_MUL_PER_ENCODE = 285
 # weights, a, responses, canonical forms and challenge reductions: ~50)
 KECCAK_PER_ROUND = 15
 FQ_MUL_PER_ROUND = 50
+E_SCALAR = 64  # bytes of one scalar (16 int32 limbs)
 # the check kernel whose code the path runs inside another kernel
 CHECK_ONLY = {"keccak_f1600": "zk_round_tail"}
 
@@ -742,16 +873,12 @@ def abc_comb_plain(tabs, rabc, num_inputs, yperm):
 
 def warm_comb_tables(sat_gens, device) -> float:
     """Build the comb tables of the SAT proofs' sumcheck generators on the
-    card (gens_4 and gens_1 of each R1CSGens): set-up, once per generator
-    set, like the generators themselves (ops/ristretto_dev.py
-    make_comb_tables, host additions). Returns its seconds."""
-    import torch
+    card (_dryrun_stages.warm_comb_tables: set-up, once per generator
+    set). Returns its seconds."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
 
     t0 = time.perf_counter()
-    if torch.device(device).type == "cuda":
-        for g in sat_gens:
-            g.gens_sc.gens_4.comb_tables(device)
-            g.gens_sc.gens_1.comb_tables(device)
+    ds.warm_comb_tables(sat_gens, device)
     return time.perf_counter() - t0
 
 
@@ -1251,6 +1378,256 @@ def expect_reject(run, device=None) -> None:
     raise AssertionError("a tampered proof verified")
 
 
+# --------------------------------------------------------------------------
+# Phase 9: the prover on several ranks (spartan_parallel_tpu_torch
+# _dryrun_stages.launch; each rank a spawned process running p9_rank)
+# --------------------------------------------------------------------------
+# the kernels whose per-rank launches each phase-9 line reports
+P9_KERNELS = {
+    "K2": ("msm_batched",),
+    "K4": ("sc_p1_round", "sc_p1_round_q", "sc_p1_round_p", "sc_p2_round",
+           "sc_p2_round_w", "sc_p2_round_p"),
+    "K5": tuple(f"sc_pc_round_{f}{u}" for f in ("x", "xs", "q", "qs", "qi")
+                for u in ("", "_fused")),
+    "K11": ("zk_round_tail",),
+    "K12": ("point_sum",),
+}
+NIZK_TAPE, DP_TAPE, COUNTER_TAPE = b"\x05" * 32, b"\x0b" * 32, b"\x07" * 32
+
+
+def rand_limbs(shape, seed: int):
+    """Random field limbs (< 2^252, Montgomery values) from a seeded CPU
+    generator: the same tensor in every process."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    t = torch.randint(0, 1 << 16, tuple(shape) + (16,), generator=g,
+                      dtype=torch.int32)
+    t[..., 15] &= 0x0FFF
+    return t
+
+
+def p9_tables():
+    """The JAX dryrun_step's seed-0 tables (2, 8, 8), n_half 4."""
+    from spartan_parallel_tpu_torch.parallel.mesh import dryrun_tables
+
+    return {k: v.numpy() for k, v in dryrun_tables(2, 8, 8).items()}, 4
+
+
+def p9_round(mesh, device):
+    """One q-sharded phase-1 round; the evaluations and a sha256 of each
+    of this rank's bound tables."""
+    import hashlib
+
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    tables, n_half = p9_tables()
+    out = ds.sharded_round(mesh, device, tables, n_half, sck.MODE_X)
+    return {"evals": out["evals"],
+            "bound": [hashlib.sha256(b.tobytes()).hexdigest()
+                      for b in out["bound"]]}
+
+
+def p9_round_ref(dev, world):
+    """p9_round's single-rank result, cut into each rank's share (tq
+    along its only axis, B/C/D along q)."""
+    import hashlib
+
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    tables, n_half = p9_tables()
+    out = ds.sharded_round(None, dev, tables, n_half, sck.MODE_X)
+    refs = []
+    for k in range(world):
+        bound = []
+        for i, b in enumerate(out["bound"]):
+            if i in (1, 3, 4, 5):
+                ax = 0 if i < 3 else 1
+                b = b.take(range(k, b.shape[ax], world), axis=ax)
+            bound.append(hashlib.sha256(b.tobytes()).hexdigest())
+        refs.append({"evals": out["evals"], "bound": bound})
+    return refs
+
+
+def p9_msm_inputs(device, n: int, rows: int):
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+
+    pts = MultiCommitGens(n, b"chip_smoke").device_points(device)[:n]
+    return pts, rand_limbs((rows, n), 11).to(device)
+
+
+def p9_msm(mesh, device, n, rows):
+    """The sharded MSM of n points x rows rows; compressed points."""
+    from spartan_parallel_tpu_torch.parallel.msm_sharded import msm_sharded
+
+    return [p.compress() for p in msm_sharded(
+        mesh, *p9_msm_inputs(device, n, rows))]
+
+
+def p9_rank(mesh, device, jobs, strict):
+    """One rank of a phase-9 launch: each job (name, kwargs), a
+    p9_* function here or a stage of _dryrun_stages, with the launch
+    counts set to 0 just before it and read just after. One cross-rank
+    sum first sets up the card, the communicator and sum_reduce's
+    constant. strict: every device-round loop under
+    set_sync_debug_mode("error") (NCCL)."""
+    import torch
+
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.ops import kernels
+    from spartan_parallel_tpu_torch.parallel.mesh import sum_partials
+
+    stats = {"sumchecks": 0, "rounds": 0}
+    sum_partials(mesh, torch.zeros((3, 16), dtype=torch.int32,
+                                   device=device))
+    if strict:
+        strict_round_loops(torch, stats)
+    out = []
+    for name, kw in jobs:
+        fn = globals()[name] if name.startswith("p9_") else \
+            getattr(ds, name)
+        kernels.reset_counts()
+        c0, s0 = mesh.collectives, mesh.collective_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(mesh, device, **kw)
+        torch.cuda.synchronize()
+        out.append({"job": name, "result": res,
+                    "wall_s": time.perf_counter() - t0,
+                    "launches": {k: v for k, v in kernels.launches.items()
+                                 if v},
+                    "collectives": mesh.collectives - c0,
+                    "collective_s": mesh.collective_s - s0})
+    return {"jobs": out, "no_host_sync": stats}
+
+
+def p9_launch(dev, card, label, world, jobs, refs, needs, splits,
+              shape=None, strict=False):
+    """Run the jobs on `world` ranks, check every rank's result against
+    its single-rank reference, emit one line per job, and return rank
+    0's launch counts summed over the jobs. needs: the kernels each job
+    must launch on every rank; splits: for each job, the rounds each of
+    its sumchecks must run on split tables (one cross-rank sum a round),
+    "each" (at least one round in every sumcheck, at least one
+    sumcheck), or None (a job with no sumcheck)."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+
+    t0 = time.perf_counter()
+    reps = ds.launch(p9_rank, world, args=(jobs, strict), device=dev,
+                     shape=shape, timeout=600)
+    wall = time.perf_counter() - t0
+    total = {}
+    for j, (name, kw) in enumerate(jobs):
+        per = [r["result"]["jobs"][j] for r in reps]
+        same = all(_p9_same(p["result"], refs[j], k)
+                   for k, p in enumerate(per))
+        kern = [{kk: sum(p["launches"].get(c, 0) for c in cs)
+                 for kk, cs in P9_KERNELS.items()} for p in per]
+        missing = [kk for kk in needs[j] if not all(k[kk] for k in kern)]
+        split = [p["result"].get("split_rounds")
+                 if isinstance(p["result"], dict) else None for p in per]
+        split_ok = splits[j] is None or all(
+            s_ == splits[j] if splits[j] != "each" else
+            (s_ and all(s_)) for s_ in split)
+        emit({"phase": "multi_device", "launch": label, "job": name,
+              "args": {k: (v.hex() if isinstance(v, bytes) else v)
+                       for k, v in kw.items()},
+              "world": world, "mesh": list(shape or (world,)),
+              "backend": reps[0]["backend"], "card": card,
+              "identical_to_single_rank": same,
+              "prove_s_per_rank": [p["result"].get("prove_s")
+                                   if isinstance(p["result"], dict) else None
+                                   for p in per],
+              "wall_s_per_rank": [p["wall_s"] for p in per],
+              "kernel_launches_per_rank": kern,
+              "split_rounds_per_rank": split,
+              "collectives_per_rank": [p["collectives"] for p in per],
+              "collective_s_per_rank": [p["collective_s"] for p in per]})
+        if not same:
+            raise AssertionError(f"{label} {name}: a rank's result differs "
+                                 "from the single-rank one")
+        if missing:
+            raise AssertionError(f"{label} {name}: {missing} not launched "
+                                 "on every rank")
+        if not split_ok:
+            raise AssertionError(f"{label} {name}: split rounds {split}, "
+                                 f"expected {splits[j]}")
+        for k, v in per[0]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "multi_device_launch", "launch": label, "world": world,
+          "backend": reps[0]["backend"], "launch_wall_s": wall,
+          "rank_s": [r["seconds"] for r in reps],
+          "no_host_sync": ([r["result"]["no_host_sync"] for r in reps]
+                           if strict else "not checked: gloo carries the "
+                           "collectives through host memory")})
+    if strict and not all(r["result"]["no_host_sync"]["sumchecks"]
+                          for r in reps):
+        raise AssertionError(f"{label}: no device-round sumcheck ran")
+    return total
+
+
+def _p9_same(got, ref, rank: int) -> bool:
+    import numpy as np
+
+    if isinstance(ref, list) and ref and isinstance(ref[0], dict):
+        ref = ref[rank]
+    if isinstance(got, dict) and "bytes" in got:
+        return got["bytes"] == ref
+    if isinstance(got, dict):
+        return np.array_equal(got["evals"], ref["evals"]) and \
+            got["bound"] == ref["bound"]
+    return got == ref
+
+
+def phase9(dev, card, refs, log_cons: int) -> dict:
+    """The sharded prover on ranks that share the card: D = 2 over gloo
+    (the rounds, the MSM, the NIZK 2^20, config 4 skewed, the counter
+    SNARK), a 2 x 2 mesh over gloo (the 2_nizk stage's shape), and one
+    rank over NCCL (the round and the 2^10 NIZK). Every result must equal
+    the single-rank one: the proofs of phases 3-5 under the same tapes,
+    and the round and the MSM computed here on one rank."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.ops import msm
+
+    t_phase = time.perf_counter()
+    pts, scal = p9_msm_inputs(dev, 1024, 1024)
+    msm_ref = [p.compress() for p in msm.msm(pts, scal)]
+    del pts, scal
+    nizk64 = ds.stage_2_nizk(None, dev, n=64, tape_seed=COUNTER_TAPE)
+    nizk_args = {"n": 1 << log_cons, "num_inputs": 10, "seed": 0,
+                 "tape_seed": NIZK_TAPE, "label": b"nizk_example"}
+    dp_args = {"num_proofs": (512, 128, 32, 32), "ncons": 1024,
+               "num_inputs": 10, "seed": 2, "tape_seed": DP_TAPE,
+               "label": b"dp_bench"}
+    jobs = [("p9_round", {}),
+            ("p9_msm", {"n": 1024, "rows": 1024}),
+            ("stage_2_nizk", nizk_args),
+            ("stage_4_dp_r1cs", dp_args),
+            ("stage_3_snark", {"tape_seed": COUNTER_TAPE})]
+    counts = p9_launch(
+        dev, card, "gloo_2", 2, jobs,
+        [p9_round_ref(dev, 2), msm_ref, refs["nizk"], refs["dp_skewed"],
+         refs["counter"]],
+        [("K4",), ("K2", "K12"), ("K2", "K4", "K11", "K12"),
+         ("K2", "K5", "K11", "K12"), ("K11",)],
+        # the x (phase 1) and y (phase 2) rounds while the half length
+        # is at least the number of ranks: log2 of the axis, less log2 D
+        [None, None, [log_cons - 1] * 2, [9, 9], "each"])
+    p9_launch(dev, card, "gloo_2x2", 4,
+              [("stage_2_nizk", {"n": 64, "tape_seed": COUNTER_TAPE})],
+              [nizk64["bytes"]], [("K4", "K11")], [[4, 4]], shape=(2, 2))
+    p9_launch(dev, card, "nccl_1", 1,
+              [("p9_round", {}),
+               ("stage_2_nizk", dict(nizk_args, n=1 << 10))],
+              [p9_round_ref(dev, 1), refs["nizk_2_10"]],
+              [("K4",), ("K4", "K11")], [None, [10, 10]], strict=True)
+    emit({"phase": "multi_device_total", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-cons", type=int, default=20,
@@ -1305,8 +1682,10 @@ def main() -> int:
             raise AssertionError(f"{k} round tails for {n} ZK rounds")
         return {"zk_rounds": n, "zk_round_tail_launches": k}
 
+    refs = {}
     kernels.reset_counts()
     on_card = nizk_run(10, 10, dev, seed_tape=True)
+    refs["nizk_2_10"] = on_card["bytes"]
     zk = tails(on_card["proof"])
     on_cpu = nizk_run(10, 10, "cpu", seed_tape=True)
     same = on_card["bytes"] == on_cpu["bytes"]
@@ -1347,6 +1726,7 @@ def main() -> int:
     cn = {dev: zkvm_run(*ex.build_counter_program(), dev, b"\x07" * 32)}
     zk = tails(ser.deserialize(cn[dev]["bytes"], "SNARK"))
     cn["cpu"] = zkvm_run(*ex.build_counter_program(), "cpu", b"\x07" * 32)
+    refs["counter"] = cn[dev]["bytes"]
     same = cn[dev]["bytes"] == cn["cpu"]["bytes"]
     emit({"phase": "zkvm_counter_fixed_tape", "bytes_identical": same,
           "proof_bytes": len(cn[dev]["bytes"]), "verified": True,
@@ -1371,8 +1751,9 @@ def main() -> int:
     counts = {}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    run = nizk_run(args.log_cons, 10, dev, seed_tape=False)
+    run = nizk_run(args.log_cons, 10, dev, seed_tape=True)
     counts["nizk"] = dict(kernels.launches)
+    refs["nizk"] = run["bytes"]
     expect_reject(run, dev)
     emit({"phase": "nizk", "log_cons": args.log_cons, "card": card,
           "setup_s": run["setup_s"], "comb_tables_s": run["comb_tables_s"],
@@ -1395,6 +1776,8 @@ def main() -> int:
         kernels.reset_counts()
         run = dp_run(num_proofs, 10, 10, dev, seed_tape=path == "dp_skewed")
         counts[path] = dict(kernels.launches)
+        if path == "dp_skewed":
+            refs["dp_skewed"] = run["bytes"]
         expect_reject(run)
         if path == "dp_skewed":
             # the same proof with the host round loop on the card; then
@@ -1524,6 +1907,8 @@ def main() -> int:
     if not all(counts["dp_uniform"].get(k) for k in dp_modes):
         raise AssertionError("K4's data-parallel rounds not launched")
 
+    counts["multi_device"] = phase9(dev, card, refs, args.log_cons)
+
     emit({"phase": "no_host_sync", "check": "torch.cuda.set_sync_debug_mode"
           "('error') around every device-round loop on the card, phases "
           "3-8", **no_sync})
@@ -1538,7 +1923,8 @@ def main() -> int:
         row = next(r for r in rows if r["name"] == name)
         row["launches_of_" + host] = counts[paths[name][0]].get(host, 0)
     missing = [r["name"] for r in rows if r["launches"] == 0 and not
-               r.get("launches_of_" + CHECK_ONLY.get(r["name"], ""))]
+               r.get("launches_of_" + CHECK_ONLY.get(r["name"], ""))
+               and not r.get("off_path")]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")

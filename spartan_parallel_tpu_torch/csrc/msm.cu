@@ -16,12 +16,26 @@
 //     window down with 8 doublings between windows.
 //   fold_points: one thread per point pair computes k_l * L_i + k_r * R_i
 //     by a joint double-and-add over the 253 bits of the shared scalars.
+//   point_sum (K12): one thread per column b sums D points (D, B) -> (B)
+//     by the halving tree of ops/curve.py tree_sum (identity-padded, the
+//     same pairs in the same order, so the coordinates equal the plain
+//     version's). It adds up the per-rank MSM partials of the sharded MSM
+//     (parallel/msm_sharded.py); replaces the JAX package's ops/curve.py
+//     tree_reduce as parallel/msm_sharded.py msm_sharded_dev uses it.
+//   scale_points (K13): one thread per point computes k * P by the JAX
+//     package's 253-step scan (ops/curve.py _scale_scan / scale_points):
+//     bit i from the bottom adds the running 2^i P, then doubles it.
 //
 // Bound on the card: operations. Each point addition is 9 products of
 // 256-bit numbers mod p (~64 32x32-bit multiply-adds each plus reduction);
 // an MSM of B rows of N points needs about 32 (B N + 2 * 256 B) additions
 // here. The serial bucket reduction (~80 dependent point operations per
 // block) and register pressure are what a later tuning pass should attack.
+// K12 adds D - 1 points a column and reads D B points, so at the few ranks
+// of a mesh it is bound by bytes; its columns are independent threads.
+// K13 is bound by operations: 253 doublings and popcount(k) additions a
+// point, a dependent chain per thread, so it needs thousands of points to
+// fill the card.
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
@@ -164,6 +178,52 @@ __global__ void k_fold(const int32_t* __restrict__ L,
   pt_store(out + 64 * i, acc);
 }
 
+// out[b] = sum_d in[d, b], the halving tree of tree_sum; scratch holds
+// (D + 1) / 2 points per column for the levels after the first.
+__global__ void k_point_sum(const int32_t* __restrict__ in,
+                            int32_t* __restrict__ scratch,
+                            int32_t* __restrict__ out, long long D,
+                            long long B) {
+  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const int32_t* src = in;
+  long long n = D;
+  while (n > 1) {
+    const long long h = (n + 1) / 2;  // odd n: the identity pads the top
+    for (long long i = 0; i < h; ++i) {
+      Point p, q;
+      pt_load(p, src + 64 * (i * B + b));
+      if (i + h < n)
+        pt_load(q, src + 64 * ((i + h) * B + b));
+      else
+        pt_identity(q);
+      pt_add(p, p, q);
+      pt_store(scratch + 64 * (i * B + b), p);
+    }
+    src = scratch;
+    n = h;
+  }
+  for (int k = 0; k < 64; ++k) out[64 * b + k] = src[64 * b + k];
+}
+
+// out[i] = k * P[i]; k as 16-bit limbs (canonical, < l).
+__global__ void k_scale(const int32_t* __restrict__ P,
+                        const int32_t* __restrict__ k,
+                        int32_t* __restrict__ out, long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t kk[8];
+  load16(k, kk);
+  Point add, acc;
+  pt_load(add, P + 64 * i);
+  pt_identity(acc);
+  for (int bit = 0; bit < 253; ++bit) {
+    if ((kk[bit >> 5] >> (bit & 31)) & 1u) pt_add(acc, acc, add);
+    pt_double(add, add);
+  }
+  pt_store(out + 64 * i, acc);
+}
+
 extern "C" {
 
 // points (N, 4, 16); scalars (B, N, 16) canonical limbs; win: B * NWIN
@@ -183,6 +243,24 @@ int fold_points_launch(const int32_t* L, const int32_t* R, const int32_t* k,
   if (n > 0)
     k_fold<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
         L, R, k, out, n);
+  return (int)cudaGetLastError();
+}
+
+// in (D, B, 4, 16); scratch ((D + 1) / 2, B, 4, 16); out (B, 4, 16).
+int point_sum_launch(const int32_t* in, int32_t* scratch, int32_t* out,
+                     long long D, long long B, void* stream) {
+  if (B > 0)
+    k_point_sum<<<(unsigned)((B + 127) / 128), 128, 0,
+                  (cudaStream_t)stream>>>(in, scratch, out, D, B);
+  return (int)cudaGetLastError();
+}
+
+// P (n, 4, 16); k (16,) canonical limbs; out (n, 4, 16).
+int scale_points_launch(const int32_t* P, const int32_t* k, int32_t* out,
+                        long long n, void* stream) {
+  if (n > 0)
+    k_scale<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+        P, k, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -8,8 +8,11 @@ the JAX package's.
 Host/device split as in the JAX package: small commits run on the host
 (native C Straus); bulk row commits of device-resident Montgomery rows run
 through the batched MSM kernel (ops/msm.py, K2) when their total work
-exceeds the threshold below. Results are exact either way, so the proof
-bytes do not depend on the threshold.
+exceeds the threshold below. Under an active prover mesh of several ranks
+(parallel/context.py) the threshold is 8192 on any device, and bulk
+commits split their points over the ranks (parallel/msm_sharded.py).
+Results are exact either way, so the proof bytes do not depend on the
+threshold or the split.
 """
 
 from __future__ import annotations
@@ -19,10 +22,14 @@ import hashlib
 import numpy as np
 import torch
 
+from ..core.consts import L as L_MOD
 from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import curve, fq, msm, ristretto_dev
 from ..ops import limbs as lb
+from ..parallel.context import current_mesh
+
+_MESH_MSM_MAX = 8192
 
 
 def host_msm_max(device: torch.device) -> int:
@@ -30,6 +37,24 @@ def host_msm_max(device: torch.device) -> int:
     the host: on the card 8192, the JAX package's accelerator threshold;
     on the CPU the host path takes everything."""
     return 8192 if device.type == "cuda" else 1 << 62
+
+
+def _mesh_active() -> bool:
+    mesh = current_mesh()
+    return mesh is not None and mesh.size > 1
+
+
+def _bulk_msm(points_dev: torch.Tensor, limbs: torch.Tensor) -> list:
+    """Device MSM of a bulk commit; under an active mesh of several ranks
+    its points split over them (parallel/msm_sharded.py), as the JAX
+    package's _bulk_msm does."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1 and \
+            points_dev.shape[0] >= 2 * mesh.size:
+        from ..parallel.msm_sharded import msm_sharded
+
+        return msm_sharded(mesh, points_dev, limbs)
+    return msm.msm(points_dev, limbs)
 
 
 class MultiCommitGens:
@@ -100,14 +125,24 @@ def commit_scalar(x, blind, gens: MultiCommitGens) -> RistrettoPoint:
 
 
 def commit_rows(rows, blinds, gens: MultiCommitGens):
-    """Host commit of B rows of host scalars sharing generators. Every
-    host-scalar commit of the NIZK path is a few thousand points at most,
-    below the device threshold, so this port keeps it on the host."""
+    """Commit of B rows of host scalars sharing generators. On one rank
+    every host-scalar commit stays on the host (the paths' are a few
+    thousand points at most, below the device threshold); under an active
+    mesh of several ranks a commit of more than 8192 points of work goes
+    to the sharded MSM on the mesh's devices."""
     rows = _to_int_rows(rows)
-    assert gens.n >= rows.shape[1]
-    pts = gens.G[:rows.shape[1]] + [gens.h]
-    return [multiscalar_mul(list(r) + [int(b)], pts)
-            for r, b in zip(rows, blinds)]
+    b, n = rows.shape
+    assert gens.n >= n
+    pts = gens.G[:n] + [gens.h]
+    if not _mesh_active() or b * (n + 1) <= _MESH_MSM_MAX:
+        return [multiscalar_mul(list(r) + [int(x)], pts)
+                for r, x in zip(rows, blinds)]
+    dev = current_mesh().device
+    scal = [int(v) % L_MOD for r, x in zip(rows, blinds)
+            for v in list(r) + [int(x)]]
+    limbs = lb.to_device(lb.ints_to_limbs(scal), dev).reshape(b, n + 1, 16)
+    idx = torch.cat([torch.arange(n), torch.tensor([gens.n])]).to(dev)
+    return _bulk_msm(gens.device_points(dev)[idx], limbs)
 
 
 def commit_rows_device(rows_mont: torch.Tensor, blinds,
@@ -115,7 +150,9 @@ def commit_rows_device(rows_mont: torch.Tensor, blinds,
     """Batched commit of device-resident Montgomery rows (B, n, 16)."""
     b, n, _ = rows_mont.shape
     assert gens.n >= n
-    if b * (n + 1) <= host_msm_max(rows_mont.device):
+    limit = _MESH_MSM_MAX if _mesh_active() else \
+        host_msm_max(rows_mont.device)
+    if b * (n + 1) <= limit:
         vals = fq.decode(rows_mont.reshape(-1, 16))
         pts = gens.G[:n] + [gens.h]
         return [multiscalar_mul(vals[i * n:(i + 1) * n] + [int(blinds[i])],
@@ -126,8 +163,8 @@ def commit_rows_device(rows_mont: torch.Tensor, blinds,
     if all(int(x) == 0 for x in blinds):
         # zero blinds (the fork passes None for every witness poly):
         # 0*h = identity, so the h column is dropped
-        return msm.msm(pts_dev[:n], canon)
+        return _bulk_msm(pts_dev[:n], canon)
     blind_limbs = curve.scalar_limbs(blinds, dev).reshape(b, 1, 16)
     scal = torch.cat([canon, blind_limbs], dim=1)
     idx = torch.cat([torch.arange(n), torch.tensor([gens.n])]).to(dev)
-    return msm.msm(pts_dev[idx], scal)
+    return _bulk_msm(pts_dev[idx], scal)

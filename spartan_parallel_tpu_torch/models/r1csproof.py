@@ -15,7 +15,12 @@ byte for byte; the tensors are PyTorch on the caller's device:
     the card by K11's round tail (models/sumcheck.py; the host loop for
     CPU tables);
   * the witness openings group the sections' polynomials by size into
-    batched Hyrax openings.
+    batched Hyrax openings;
+  * under a prover mesh (parallel/context.py) the tables of each
+    sumcheck's first axis are this rank's share (`shard_big`, at the JAX
+    package's sites: the tau_x eq table and Az/Bz/Cz along x, the ABC
+    table and the bound z along y). z stays whole on every rank: each
+    rank's SpMV reads all of it.
 
 The NIZK (models/nizk.py) is this proof with P = Q = 1 and two sections.
 """
@@ -29,6 +34,7 @@ from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import fq
 from ..ops.sumcheck import fold_chain, rev_perm
+from ..parallel.context import shard_big
 from ..utils.errors import ProofVerifyError
 from ..utils.timer import Timer
 from .commitments import MultiCommitGens, commit_scalar
@@ -377,12 +383,13 @@ class R1CSProof:
         timer = Timer("prove_vec_mult")
         poly_tau_p = EqPolynomial(tau_p).evals_dev(dev)
         poly_tau_q = EqPolynomial(tau_q).evals_dev(dev)
-        poly_tau_x = EqPolynomial(tau_x).evals_dev(dev)
+        poly_tau_x = shard_big(EqPolynomial(tau_x).evals_dev(dev), 0)
         if classes is not None:
             class_tensors = []
             for (p0, P_c, Q_c), znc in zip(classes, z_class):
-                class_tensors.append((p0,) + inst.multiply_vec_block_classed(
-                    p0, Q_c, num_cons, znc))
+                class_tensors.append((p0,) + tuple(
+                    shard_big(t, 2) for t in inst.multiply_vec_block_classed(
+                        p0, Q_c, num_cons, znc)))
         else:
             poly_Az, poly_Bz, poly_Cz = inst.multiply_vec_block(
                 num_instances, list(num_proofs), max_num_proofs,
@@ -405,8 +412,9 @@ class R1CSProof:
                 ZKSumcheckInstanceProof.prove_cubic_with_additive_term_disjoint_rounds(
                     _ZERO, _ZERO, nrx + nrq + nrp, nrx, nrq, nrp,
                     poly_tau_p, poly_tau_q, poly_tau_x,
-                    poly_Az.Zm[:, :, 0], poly_Bz.Zm[:, :, 0],
-                    poly_Cz.Zm[:, :, 0],
+                    shard_big(poly_Az.Zm[:, :, 0], 2),
+                    shard_big(poly_Bz.Zm[:, :, 0], 2),
+                    shard_big(poly_Cz.Zm[:, :, 0], 2),
                     gens.gens_sc.gens_1, gens.gens_sc.gens_4,
                     transcript, random_tape)
             del poly_Az, poly_Bz, poly_Cz
@@ -472,6 +480,7 @@ class R1CSProof:
         if P_inst < next_pow2(num_instances) and P_inst != 1:
             ABC_dense = torch.cat([ABC_dense, ABC_dense.new_zeros(
                 (next_pow2(num_instances) - P_inst,) + ABC_dense.shape[1:])])
+        ABC_dense = shard_big(ABC_dense, 2)
         timer.stop(dev)
 
         timer = Timer("prove_z_gen")
@@ -521,7 +530,7 @@ class R1CSProof:
             ZKSumcheckInstanceProof.prove_cubic_disjoint_rounds(
                 claim_phase2, blind_claim_phase2, nry + nrw + nrp,
                 nry, nrw, nrp, single_inst, eq_p_rp, ABC_dense,
-                Z_bound.contiguous(),
+                shard_big(Z_bound.contiguous(), 2),
                 gens.gens_sc.gens_1, gens.gens_sc.gens_4,
                 transcript, random_tape)
         timer_sc2.stop(dev)

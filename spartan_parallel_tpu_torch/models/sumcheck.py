@@ -22,6 +22,13 @@ bytes:
 
 The tables' device picks the form (`_device_rounds_on`).
 
+Under a prover mesh (parallel/context.py) the tables of the first rounds'
+axis (x in phase 1, y in phase 2) arrive as this rank's share, split by
+the low bits of the index (`_split_x`): each round evaluates the share and
+adds the ranks' evaluations exactly before the transcript, or K11, reads
+them; when the live length reaches the number of ranks the last entries
+are gathered and the remaining rounds run on every rank.
+
 `SumcheckInstanceProof` (non-ZK, sumcheck.rs:28) carries SPARK's product
 layer rounds; its prover is models/product_tree.py prove_cubic_batched.
 """
@@ -39,6 +46,8 @@ from ..ops import sumcheck as sck
 from ..ops import transcript_dev as tdev
 from ..ops import zk_round as zkr
 from ..ops.sumcheck import MODE_P, MODE_Q, MODE_W, MODE_X
+from ..parallel import mesh as pmesh
+from ..parallel.context import current_mesh
 from ..utils.errors import ProofVerifyError
 from .commitments import MultiCommitGens, commit_scalar
 from .dense_mlpoly import mont_to_scalar, mont_to_scalars, scalars_to_mont
@@ -53,6 +62,65 @@ def _device_rounds_on(device) -> bool:
     """Device-resident rounds for tables on the card, the host loop for
     CPU tables (the JAX package: device rounds off its CPU backend)."""
     return torch.device(device).type == "cuda"
+
+
+def _x_split(global_len: int, local_len: int):
+    """(mesh, d): the active mesh and the d ranks the first rounds' axis
+    is split over, or (None, 1) when the tables are whole on every rank
+    (no mesh, or an axis that shard_big left whole)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None, 1
+    d = global_len // local_len
+    if d == mesh.size:
+        return mesh, d
+    if d == 1:
+        return None, 1
+    raise ValueError(f"tables split {d} ways on a mesh of {mesh.size}")
+
+
+def _split_x(mesh, d: int, first, step, settle, gather):
+    """first/step of a prover whose x tables hold this rank's share: rank
+    k of d holds entries k, k + d, ... of the axis (parallel/context.py
+    shard_big). The x rounds come first and bind the top bit first, so
+    while the round's n_half is at least d, entry i and entry i + n_half
+    lie on one rank: the round runs on the share with n_half / d and the
+    ranks' evaluations are added exactly (parallel/mesh.py sum_partials).
+    At the first round with n_half < d, settle(r, n_half, mode) binds the
+    previous round on the share, gather() collects the one live entry of
+    every rank (rank k's at index k), and the rounds from there on run on
+    the whole tables on every rank. The number of split rounds of the
+    sumcheck is mesh.split_rounds[-1] from its first split round on."""
+    split = [0]  # rounds run split so far; None once gathered
+
+    def count():
+        if split[0] == 0:
+            mesh.split_rounds.append(0)
+        split[0] += 1
+        mesh.split_rounds[-1] = split[0]
+
+    def first_s(n_half, mode):
+        if split[0] is not None:
+            if mode == MODE_X and n_half >= d:
+                count()
+                return pmesh.sum_partials(mesh, first(n_half // d, mode))
+            split[0] = None
+            gather()
+        return first(n_half, mode)
+
+    def step_s(rm_p, nh_p, mode_p, n_half, mode):
+        if split[0] is not None:
+            if mode == MODE_X and n_half >= d:
+                count()
+                return pmesh.sum_partials(
+                    mesh, step(rm_p, nh_p // d, mode_p, n_half // d, mode))
+            split[0] = None
+            settle(rm_p, nh_p // d, mode_p)
+            gather()
+            return first(n_half, mode)
+        return step(rm_p, nh_p, mode_p, n_half, mode)
+
+    return first_s, step_s
 
 
 def _scan_prep(num_rounds: int, blinds_poly, blinds_evals, blind_claim,
@@ -310,8 +378,9 @@ class ZKSumcheckInstanceProof:
         assert num_rounds == num_rounds_x_max + num_rounds_q_max + num_rounds_p
         modes = ([MODE_X] * num_rounds_x_max + [MODE_Q] * num_rounds_q_max
                  + [MODE_P] * num_rounds_p)
+        mesh, d = _x_split(1 << num_rounds_x_max, int(tx.shape[0]))
         live = {MODE_P: int(tp.shape[0]), MODE_Q: int(tq.shape[0]),
-                MODE_X: int(tx.shape[0])}
+                MODE_X: int(tx.shape[0]) * d}
         tabs = [tp, tq, tx, B, C, D]
 
         def first(n_half, mode):
@@ -322,6 +391,16 @@ class ZKSumcheckInstanceProof:
                                    mode_prev=mode_p, mode=mode)
             tabs[:] = new
             return evd
+
+        def settle(rm_p, nh_p, mode_p):
+            tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p)
+
+        def gather():
+            tabs[2:] = pmesh.gather_axis(
+                mesh, [(tabs[2], 0)] + [(t, 2) for t in tabs[3:]])
+
+        if mesh is not None:
+            first, step = _split_x(mesh, d, first, step, settle, gather)
 
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,
@@ -366,8 +445,9 @@ class ZKSumcheckInstanceProof:
         modes = ([MODE_X] * num_rounds_x_max + [MODE_Q] * num_rounds_q_max
                  + [MODE_P] * num_rounds_p)
         q_max = int(tq.shape[0])
+        mesh, d = _x_split(1 << num_rounds_x_max, int(tx.shape[0]))
         live = {MODE_P: int(tp.shape[0]), MODE_Q: q_max,
-                MODE_X: int(tx.shape[0])}
+                MODE_X: int(tx.shape[0]) * d}
         eq = {MODE_P: tp, MODE_Q: tq, MODE_X: tx}
         cls = [{"p0": p0, "S": q_max // int(B.shape[1]), "T": (B, C, D),
                 "nh": None, "active": None} for (p0, B, C, D) in classes]
@@ -431,6 +511,22 @@ class ZKSumcheckInstanceProof:
             merged[:] = tabs[3:]
             return evd
 
+        def settle(rm_p, nh_p, mode_p):
+            eq[mode_p] = sck.eq_fold(eq[mode_p], rm_p, nh_p)
+            for c in cls:
+                c["T"] = sck.pc_bind(*c["T"], rm_p, c["nh"], mode_p,
+                                     c["active"])
+
+        def gather():
+            items = [(eq[MODE_X], 0)] + [(t, 2) for c in cls for t in c["T"]]
+            out = pmesh.gather_axis(mesh, items)
+            eq[MODE_X] = out[0]
+            for i, c in enumerate(cls):
+                c["T"] = tuple(out[1 + 3 * i:4 + 3 * i])
+
+        if mesh is not None:
+            first, step = _split_x(mesh, d, first, step, settle, gather)
+
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,
             gens_1, gens_n, transcript, random_tape, tp.device)
@@ -462,8 +558,9 @@ class ZKSumcheckInstanceProof:
         assert num_rounds == num_rounds_y_max + num_rounds_w + num_rounds_p
         modes = ([MODE_X] * num_rounds_y_max + [MODE_W] * num_rounds_w
                  + [MODE_P] * num_rounds_p)
+        mesh, d = _x_split(1 << num_rounds_y_max, int(Z.shape[2]))
         live = {MODE_P: int(Z.shape[0]), MODE_W: int(Z.shape[1]),
-                MODE_X: int(Z.shape[2])}
+                MODE_X: int(Z.shape[2]) * d}
         tabs = [ep, ABC, Z]
 
         def first(n_half, mode):
@@ -476,6 +573,16 @@ class ZKSumcheckInstanceProof:
                                    single_inst=single_inst)
             tabs[:] = new
             return evd
+
+        def settle(rm_p, nh_p, mode_p):
+            tabs[:] = sck.p2_bind(*tabs, rm_p, nh_p, mode=mode_p,
+                                  single_inst=single_inst)
+
+        def gather():
+            tabs[1:] = pmesh.gather_axis(mesh, [(tabs[1], 2), (tabs[2], 2)])
+
+        if mesh is not None:
+            first, step = _split_x(mesh, d, first, step, settle, gather)
 
         proof, r, pending, blind_last = ZKSumcheckInstanceProof._rounds(
             claim, blind_claim, num_rounds, modes, live, first, step,

@@ -10,7 +10,11 @@ ristretto compression.
 `fold_points` launches csrc/msm.cu's fold kernel on a CUDA tensor and takes
 `fold_points_plain` on a CPU tensor. It replaces ops/curve.py
 _fold_scan; bound on the card by operations (a 253-bit joint
-double-and-add per pair), see csrc/msm.cu.
+double-and-add per pair), see csrc/msm.cu. `point_sum` (K12, the sum of
+the sharded MSM's per-rank partials; replaces ops/curve.py tree_reduce)
+and `scale_points` (K13, k * P; replaces ops/curve.py _scale_scan /
+scale_points) launch msm.cu's kernels the same way, with `tree_sum` and
+`scale_points_plain` as their plain versions.
 """
 
 from __future__ import annotations
@@ -154,4 +158,59 @@ def fold_points(pts_l: torch.Tensor, pts_r: torch.Tensor, k_l: int,
     kernels.launch("fold_points", "fold_points_launch", pts_l.data_ptr(),
                    pts_r.data_ptr(), k.data_ptr(), out.data_ptr(),
                    pts_l.numel() // 64, kernels.stream(pts_l))
+    return out
+
+
+def point_sum(parts: torch.Tensor) -> torch.Tensor:
+    """(D, B, 4, 16) -> (B, 4, 16): the sum over the leading axis by
+    tree_sum's halving tree (K12 on a CUDA tensor)."""
+    if parts.dim() != 4 or parts.shape[-2:] != (4, 16):
+        raise ValueError(f"point_sum takes (D, B, 4, 16), got "
+                         f"{tuple(parts.shape)}")
+    if parts.device.type == "cpu":
+        return tree_sum(parts, 0)
+    d, b = parts.shape[:2]
+    parts = parts.contiguous()
+    kernels.require_cuda(parts)
+    scratch = torch.empty(((d + 1) // 2, b, 4, 16), dtype=torch.int32,
+                          device=parts.device)
+    out = torch.empty((b, 4, 16), dtype=torch.int32, device=parts.device)
+    kernels.launch("point_sum", "point_sum_launch", parts.data_ptr(),
+                   scratch.data_ptr(), out.data_ptr(), d, b,
+                   kernels.stream(parts))
+    return out
+
+
+SCALAR_BITS = 253
+
+
+def scale_points_plain(pts: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """k * P for every point: the JAX package's scan, bit i from the
+    bottom adds the running 2^i P, which then doubles (the doublings past
+    k's top bit, which change no sum, are left out). k: (16,) canonical
+    limbs."""
+    kv = int(lb.limbs_to_ints(k.reshape(1, 16))[0])
+    acc = torch.as_tensor(identity(pts.shape[:-2]), device=pts.device)
+    add = pts
+    for bit in range(min(kv.bit_length(), SCALAR_BITS)):
+        if (kv >> bit) & 1:
+            acc = point_add(acc, add)
+        add = point_double(add)
+    return acc
+
+
+def scale_points(pts: torch.Tensor, k: int) -> torch.Tensor:
+    """k * P for every point of (..., 4, 16); k is a host scalar, taken
+    mod l first (JAX ops/curve.py scale_points)."""
+    if pts.shape[-2:] != (4, 16):
+        raise ValueError("scale_points takes (..., 4, 16) points")
+    kl = scalar_limbs([k], pts.device)[0]
+    if pts.device.type == "cpu":
+        return scale_points_plain(pts, kl)
+    pts = pts.contiguous()
+    kernels.require_cuda(pts, kl)
+    out = torch.empty_like(pts)
+    kernels.launch("scale_points", "scale_points_launch", pts.data_ptr(),
+                   kl.data_ptr(), out.data_ptr(), pts.numel() // 64,
+                   kernels.stream(pts))
     return out

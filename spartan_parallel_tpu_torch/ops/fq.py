@@ -230,9 +230,15 @@ def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0,
     return out
 
 
+_ONE_ON = {}
+
+
 def sum_reduce(a: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Sum of field elements along `axis` (a dot with the field one)."""
-    one = lb.to_device(ONE_MONT, a.device)
+    """Sum of field elements along `axis` (a dot with the field one, which
+    goes up to each device once: a later call uploads nothing)."""
+    one = _ONE_ON.get(a.device)
+    if one is None:
+        one = _ONE_ON[a.device] = lb.to_device(ONE_MONT, a.device)
     return dot(a, one, axis)
 
 

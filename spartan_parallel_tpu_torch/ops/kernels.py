@@ -15,7 +15,11 @@ take the plain PyTorch versions and are not counted.
 
 K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
 Keccak permutation, ristretto compression, comb commitments and the round
-tail.
+tail. K12 (point_sum) and K13 (scale_points) sit in msm.cu.
+
+`build` writes each library under a temporary name and renames it, so
+processes that build at once (the ranks of a mesh) never load a partial
+file; the dryrun launcher builds once before it starts its ranks.
 """
 
 from __future__ import annotations
@@ -48,6 +52,8 @@ _ENTRIES = {
                              _I64, _P]),
     "msm_launch": ("msm", [_P, _P, _P, _P, _I64, _I64, _P]),
     "fold_points_launch": ("msm", [_P, _P, _P, _P, _I64, _P]),
+    "point_sum_launch": ("msm", [_P, _P, _P, _I64, _I64, _P]),
+    "scale_points_launch": ("msm", [_P, _P, _P, _I64, _P]),
     "spmv_launch": ("spmv", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "sparse_eval_launch": ("spmv", [_P, _P, _P, _P, _P, _P, _P, _I64, _P]),
     "p1_round_launch": ("sumcheck", [_P] * 10 + [_I64, _I64, _I64, _I32,

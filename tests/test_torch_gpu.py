@@ -398,3 +398,80 @@ def test_device_rounds_match_host_loop(dev, monkeypatch, num_proofs):
         assert tails == (rounds if on_card else 0)
         out.append(ser.serialize(proof, "R1CSProof"))
     assert out[0] == out[1]
+
+
+def test_point_sum_and_scale_kernels(dev):
+    """K12 and K13 against their plain versions, limb for limb (both
+    follow the plain order of additions): point sums of 2, 3 and 5
+    partials, and k * P for k = 0, 1, l - 1 and a 252-bit k."""
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+
+    pts = MultiCommitGens(40, b"gpu_test").device_points(dev)[:40]
+    for d in (2, 3, 5):
+        parts = pts[:8 * d].reshape(d, 8, 4, 16)
+        assert torch.equal(curve.point_sum(parts), curve.tree_sum(parts, 0))
+    for k in (0, 1, L - 1, (1 << 252) - 12345):
+        kl = curve.scalar_limbs([k], dev)[0]
+        assert torch.equal(curve.scale_points(pts[:16], k),
+                           curve.scale_points_plain(pts[:16], kl))
+
+
+def test_gloo_ranks_share_the_card(dev):
+    """Two ranks on the one card over gloo: the q-sharded phase-1 round on
+    the dryrun tables and the sharded MSM equal the single-rank results."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.parallel.mesh import dryrun_tables
+
+    from .torch_shared import rank_jobs
+
+    tables = {k: v.numpy() for k, v in dryrun_tables(2, 8, 8).items()}
+    pts = MultiCommitGens(64, b"gpu_test").device_points(dev)[:64]
+    scal = rand_field((4, 64), dev, 9)
+    jobs = [("sharded_round", (tables, 4, sck.MODE_X)),
+            ("msm_sharded", (pts.cpu().numpy(), scal.cpu().numpy()))]
+    reps = ds.launch(rank_jobs, 2, args=(jobs,), timeout=300)
+    want = ds.sharded_round(None, dev, tables, 4, sck.MODE_X)
+    msm_want = [p.compress() for p in msm.msm(pts, scal)]
+    for rep in reps:
+        assert rep["backend"] == "gloo" or torch.cuda.device_count() > 1
+        assert torch.equal(torch.from_numpy(rep["result"][0]["evals"]),
+                           torch.from_numpy(want["evals"]))
+        assert rep["result"][1] == msm_want
+        assert rep["launches"].get("point_sum") and \
+            rep["launches"].get("msm_batched")
+
+
+def test_nccl_ranks_on_their_own_cards(dev):
+    """Four ranks over NCCL, each on a card of its own (skips with fewer
+    than four cards): the NIZK on a 2 x 2 mesh, the q-sharded round and
+    the sharded MSM equal the single-rank results."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.parallel.mesh import dryrun_tables
+
+    from .torch_shared import rank_jobs
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    nizk = (64, 4, 2, b"\x07" * 32, b"dryrun")
+    tables = {k: v.numpy() for k, v in dryrun_tables(2, 8, 8).items()}
+    pts = MultiCommitGens(64, b"gpu_test").device_points(dev)[:64]
+    scal = rand_field((4, 64), dev, 9)
+    jobs = [("stage_2_nizk", nizk),
+            ("sharded_round", (tables, 4, sck.MODE_X)),
+            ("msm_sharded", (pts.cpu().numpy(), scal.cpu().numpy()))]
+    reps = ds.launch(rank_jobs, 4, args=(jobs,), shape=(2, 2), timeout=600)
+    want = ds.stage_2_nizk(None, dev, *nizk)["bytes"]
+    evals = ds.sharded_round(None, dev, tables, 4, sck.MODE_X)["evals"]
+    msm_want = [p.compress() for p in msm.msm(pts, scal)]
+    assert sorted(r["device"] for r in reps) == \
+        [f"cuda:{k}" for k in range(4)]
+    for rep in reps:
+        assert rep["backend"] == "nccl"
+        assert rep["result"][0]["bytes"] == want
+        assert rep["result"][0]["split_rounds"] == [4, 4]
+        assert torch.equal(torch.from_numpy(rep["result"][1]["evals"]),
+                           torch.from_numpy(evals))
+        assert rep["result"][2] == msm_want
+        assert rep["launches"].get("point_sum")

@@ -7,7 +7,9 @@ cold cache) computes its plain result once per run through
 `shared_result`; the other workers wait for it and read it back.
 `in_fresh_process` runs a computation in a new interpreter, so that the
 XLA executables it compiles do not stay in a worker. `device_rounds`
-gives CPU tables the port's device-resident sumcheck rounds.
+gives CPU tables the port's device-resident sumcheck rounds. `rank_jobs`
+is what each rank of a multi-rank launch runs
+(spartan_parallel_tpu_torch._dryrun_stages.launch).
 """
 
 import contextlib
@@ -31,16 +33,25 @@ def shared_result(tmp_path_factory, name: str, compute):
         return out
 
 
-def in_fresh_process(fn, *args):
+def in_fresh_process(fn, *args, timeout=None):
     """fn(*args) in a new interpreter (multiprocessing's spawn context),
     so that what it compiles and allocates leaves with the process; fn,
-    its arguments and its result must pickle."""
+    its arguments and its result must pickle. With `timeout` (seconds) a
+    child that has not answered by then is killed and TimeoutError
+    raised."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(max_workers=1, mp_context=ctx) as ex:
-        return ex.submit(fn, *args).result()
+    ex = ProcessPoolExecutor(max_workers=1, mp_context=ctx)
+    try:
+        return ex.submit(fn, *args).result(timeout=timeout)
+    except TimeoutError:
+        for p in list(ex._processes.values()):
+            p.kill()
+        raise
+    finally:
+        ex.shutdown(wait=True, cancel_futures=True)
 
 
 @contextlib.contextmanager
@@ -55,3 +66,46 @@ def device_rounds():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(sumcheck, "_device_rounds_on", lambda device: True)
         yield
+
+
+def rank_jobs(mesh, device, jobs):
+    """One rank's part of a launch: each job (name, args) in turn, the
+    results as a list. A name is a stage function of
+    spartan_parallel_tpu_torch._dryrun_stages; "msm_sharded" commits the
+    numpy points and scalar limbs of args through the sharded MSM and
+    gives the compressed points; "device_rounds" runs the job args[0]
+    with the device-resident round form forced on CPU tables; "fail"
+    raises on rank args[0] while the other ranks wait in a barrier."""
+    from spartan_parallel_tpu_torch import _dryrun_stages as ds
+
+    out = []
+    for name, args in jobs:
+        if name == "msm_sharded":
+            import torch
+
+            from spartan_parallel_tpu_torch.ops import curve
+            from spartan_parallel_tpu_torch.parallel.msm_sharded import (
+                msm_sharded,
+            )
+
+            pts, limbs = (torch.from_numpy(a).to(device) for a in args)
+            out.append([p.compress() for p in msm_sharded(mesh, pts,
+                                                          limbs)])
+        elif name == "device_rounds":
+            from spartan_parallel_tpu_torch.models import sumcheck
+
+            pick = sumcheck._device_rounds_on
+            sumcheck._device_rounds_on = lambda device: True
+            try:
+                out += rank_jobs(mesh, device, [args])
+            finally:
+                sumcheck._device_rounds_on = pick
+        elif name == "fail":
+            import torch.distributed as dist
+
+            if mesh.rank == args[0]:
+                raise ValueError(f"rank {mesh.rank} fails on purpose")
+            dist.barrier()
+        else:
+            out.append(getattr(ds, name)(mesh, device, *args))
+    return out
