@@ -60,6 +60,15 @@ Phases, each printing one JSON line:
      each line gives the per-rank prove seconds, K2/K4/K5/K11/K12
      launches, split rounds, collectives and their seconds, and the
      backend.
+Phase 2 holds K2 (the MSM) at every shape its paths launch: 1024 x 1024,
+the NIZK 2^20's witness commit (1024 rows x 1025 points), the bullet
+rounds' single rows of 514 ... 34 points (also at scalars of all-0x80
+bytes) and, after phase 8, find_min's largest block commit (its shape
+read from that run), each with its bound from the redesign's operations
+and the first design's beside it; a line before phase 2 gives msm.cu's
+ptxas registers, spills and shared memory and the window kernel's blocks
+an SM; phases 4, 5 and 8 give K2's launches and CUDA-event ms inside
+their witness commits and proves (K2Trace).
 Phase 2 also holds K7 (the powers of the shift proofs' challenge) and the
 rlc dot at the find_min path's shape and K7 at 2^20, and the
 device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
@@ -99,6 +108,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,6 +209,213 @@ def point_err(a, b) -> int:
     return max(max(abs(x - y) for x, y in zip(p, q)) for p, q in zip(ea, eb))
 
 
+# --------------------------------------------------------------------------
+# K2 (csrc/msm.cu): its shapes, its bound and the trace of its launches
+# --------------------------------------------------------------------------
+def digit_counts(scal):
+    """(nonzero signed 8-bit digits, the sum over rows and windows of the
+    largest |digit|, nonzero bytes) of (B, N, 16) canonical limbs (the
+    signed recoding: ops/msm.py signed_digits)."""
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import msm
+
+    dig = msm.signed_digits(scal)
+    by = torch.stack([scal & 0xFF, scal >> 8], -1)
+    return (int((dig != 0).sum()), int(dig.abs().amax(1).sum()),
+            int((by != 0).sum()))
+
+
+def k2_work(scal, n: int):
+    """(bytes, 32-bit multiplies, extra) of K2 on (B, N, 16) scalars.
+    Bytes: the points, the scalars and the sums, once each. Multiplies:
+    the least a signed 8-bit Pippenger MSM does on these inputs, 8 field
+    products a point operation (a cached addition or a doubling): one
+    addition a nonzero digit, the running sum's 2 m additions a row and
+    window whose largest |digit| is m, and 248 doublings and 31 additions
+    a row to combine the windows. extra: design_ms, the same bound for
+    the operations csrc/msm.cu does (one product a point for its cached
+    form; 8 a digit; per window and chunk (msm.chunking) the walk's 96
+    running-sum additions (3 a lane) and the reduction's 191 (a
+    129-addition suffix scan over the lanes, two 31-addition trees); per
+    window of a row the combine's 2 chunks - 1 additions and 5
+    doublings; sum_w 8 w = 3968 doublings a row and a 31-addition tree;
+    those steps at 9 products, a cached addition and a conversion, but
+    the doublings at 8 at split rows), and bound_ms_prev, the first
+    design's formula (every nonzero byte digit's addition and a running
+    sum of 2 x 256 additions a window at 9 products, Horner's 248
+    doublings at 8 and 31 additions a row)."""
+    from spartan_parallel_tpu_torch.ops import msm
+
+    b = scal.shape[0]
+    nz_signed, runs, nz_bytes = digit_counts(scal)
+    nbytes = n * 256 + b * n * E_SCALAR + b * 256
+    least = 8 * (nz_signed + 2 * runs + b * (248 + 31))
+    split = msm.chunking(b)[0]
+    steps = b * 32 * (split * (96 + 191) + 2 * split - 1 + 5) + b * 31
+    design = n + 8 * nz_signed + 9 * steps \
+        + (8 if split > 1 else 9) * b * 3968
+    prev_adds = nz_bytes + b * 32 * 2 * 256 + b * 31
+    prev = (prev_adds * FP_MUL_PER_ADD + b * 31 * 8 * FP_MUL_PER_DOUBLE)
+    return nbytes, least * IMAD_FP_MUL, {
+        "design_ms": bound(nbytes, design * IMAD_FP_MUL)[0],
+        "bound_ms_prev": bound(nbytes, prev * IMAD_FP_MUL)[0]}
+
+
+def edge_scalars(b: int, n: int, dev):
+    """(b, n, 16) limbs whose bytes 0-30 are all 0x80 (each recodes to
+    -128 or -127 with a carry) under a top byte of 0x0F (< l)."""
+    import torch
+
+    t = torch.full((b, n, 16), 0x8080, dtype=torch.int32, device=dev)
+    t[..., 15] = 0x0F80
+    return t
+
+
+def record_msm(record, name, pts, scal, path, extra=None,
+               replaces="spartan_parallel_tpu/ops/msm.py:189"):
+    """One K2 row: msm_dev against msm_plain on (pts, scal), exact; at
+    rows whose windows split into chunks also on edge_scalars."""
+    from spartan_parallel_tpu_torch.ops import msm
+
+    b, n = scal.shape[0], pts.shape[0]
+    single = msm.chunking(b)[0] > 1
+    if single:
+        e = edge_scalars(b, n, pts.device)
+        err = point_err(msm.msm_dev(pts, e), msm.msm_plain(pts, e))
+        if err:
+            raise AssertionError(f"{name}: K2 disagrees with msm_plain at "
+                                 f"all-0x80 bytes ({err})")
+        extra = dict(extra or {}, also_exact_for="bytes 0-30 all 0x80")
+    nbytes, imads, bounds = k2_work(scal, n)
+    record(name, "msm.cu", replaces,
+           lambda: msm.msm_dev(pts, scal), lambda: msm.msm_plain(pts, scal),
+           point_err, nbytes, imads, reps_k=20 if single else 5,
+           counter="msm_batched", path=path, plain_once=not single,
+           extra={"rows": b, "points": n, **bounds, **(extra or {})})
+
+
+def check_msm_kernels(dev, gen, record, points):
+    """K2 at the shapes of the NIZK 2^20: 1024 rows x 1024 points
+    (msm_batched), its witness commit of 1024 rows x 1025 points (the
+    blind's h column; msm_commit), the bullet rounds' single rows of
+    n/2 + 2 = 514, 258, 130, 66 and 34 points (msm_bullet_N); and
+    1024 rows of 33 and of 1 point (msm_rows_N: the part of a row's time
+    that does not grow with N); random canonical scalars."""
+    for name, b, n in [("msm_batched", 1024, 1024),
+                       ("msm_commit", 1024, 1025)] + \
+            [(f"msm_bullet_{n}", 1, n) for n in (514, 258, 130, 66, 34)] + \
+            [(f"msm_rows_{n}", 1024, n) for n in (33, 1)]:
+        record_msm(record, name, points[:n], rand_field((b, n), gen, dev),
+                   "nizk")
+
+
+def ptxas_kernels(log: str) -> dict:
+    """Each kernel of one `nvcc -Xptxas -v` log: registers, spill bytes,
+    stack frame and static shared memory."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            z = re.match(r"_Z(\d+)", name)  # a C++ name: _Z<len><name>...
+            if z:
+                name = name[z.end():z.end() + int(z.group(1))]
+            cur = out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur.update(stack_bytes=int(m.group(1)),
+                       spill_store_bytes=int(m.group(2)),
+                       spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+class K2Trace:
+    """Every K2 launch (ops/msm.py msm_dev on a card tensor) timed by
+    CUDA events, with its (rows, points) and the stage Timers
+    (utils/timer.py) and `stage` sections open around it."""
+
+    def __init__(self):
+        self.calls, self.open = [], []
+
+    @contextlib.contextmanager
+    def stage(self, label):
+        self.open.append(label)
+        try:
+            yield
+        finally:
+            self.open.remove(label)
+
+    def summary(self, stage=None) -> dict:
+        """Launches, ms and ms by shape of the calls under `stage`."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {"launches": 0, "ms": 0.0, "by_shape": {}}
+        for c in self.calls:
+            if stage is not None and stage not in c["stages"]:
+                continue
+            ms = c["ev"][0].elapsed_time(c["ev"][1])
+            key = "%dx%d" % c["shape"]
+            n, t = out["by_shape"].get(key, (0, 0.0))
+            out["by_shape"][key] = (n + 1, t + ms)
+            out["launches"] += 1
+            out["ms"] += ms
+        return out
+
+    def largest(self, stage):
+        """(rows, points) of the largest launch under `stage`."""
+        return max((c["shape"] for c in self.calls if stage in c["stages"]),
+                   key=lambda s: s[0] * s[1])
+
+
+@contextlib.contextmanager
+def k2_trace():
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import msm
+    from spartan_parallel_tpu_torch.utils import timer
+
+    tr = K2Trace()
+    dev_fn, init, stop = msm.msm_dev, timer.Timer.__init__, timer.Timer.stop
+
+    def traced_init(self, label):
+        init(self, label)
+        tr.open.append(label)
+
+    def traced_stop(self, sync=None):
+        if self.label in tr.open:
+            del tr.open[len(tr.open) - 1 - tr.open[::-1].index(self.label)]
+        return stop(self, sync)
+
+    def traced_dev(points, scalars):
+        if points.device.type != "cuda":
+            return dev_fn(points, scalars)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = dev_fn(points, scalars)
+        ev[1].record()
+        rows = 1 if scalars.dim() == 2 else scalars.shape[0]
+        tr.calls.append({"shape": (rows, points.shape[0]), "ev": ev,
+                         "stages": tuple(tr.open)})
+        return out
+
+    msm.msm_dev = traced_dev
+    timer.Timer.__init__, timer.Timer.stop = traced_init, traced_stop
+    try:
+        yield tr
+    finally:
+        msm.msm_dev = dev_fn
+        timer.Timer.__init__, timer.Timer.stop = init, stop
+
+
 def check_kernels(log_n: int, dev, reps: int):
     import torch
 
@@ -206,7 +423,7 @@ def check_kernels(log_n: int, dev, reps: int):
     from spartan_parallel_tpu_torch.models.r1csinstance import (
         produce_synthetic_r1cs,
     )
-    from spartan_parallel_tpu_torch.ops import curve, fq, msm, spmv
+    from spartan_parallel_tpu_torch.ops import curve, fq, spmv
     from spartan_parallel_tpu_torch.ops import limbs as lb
     from spartan_parallel_tpu_torch.ops import sumcheck as sck
 
@@ -274,21 +491,11 @@ def check_kernels(log_n: int, dev, reps: int):
            lambda: eq_evals(rs, log_n), lambda: eq_evals_plain(rs, log_n),
            field_err, (n + log_n) * E, (n + 4 * half) * IMAD_FQ_MUL)
 
-    # K2 at the Hyrax commit shape: B = N = sqrt(n) rows and points
+    # K2 at every shape its paths launch (check_msm_kernels)
     side = 1 << (log_n // 2)
     gens = MultiCommitGens(side, b"chip_smoke")
     pts = gens.device_points(dev)[:side]
-    scal = rand_field((side, side), gen, dev)
-    nz = sum(int((((scal[..., w >> 1] >> ((w & 1) * 8)) & 0xFF) != 0).sum())
-             for w in range(32))
-    adds = nz + side * 32 * 2 * 256 + side * 31
-    dbls = side * 31 * 8
-    msm_imads = (adds * FP_MUL_PER_ADD + dbls * FP_MUL_PER_DOUBLE) \
-        * IMAD_FP_MUL
-    record("msm_batched", "msm.cu", "spartan_parallel_tpu/ops/msm.py:189",
-           lambda: msm.msm_dev(pts, scal), lambda: msm.msm_plain(pts, scal),
-           point_err, side * 256 + side * side * E + side * 256, msm_imads,
-           reps_k=max(1, reps // 4))
+    check_msm_kernels(dev, gen, record, gens.device_points(dev))
     # the bullet rounds fold with a full-width challenge and its inverse:
     # two random field elements below l. k_fold doubles 253 times, adds
     # L + R once up front, then adds one point per bit set in kl | kr.
@@ -362,7 +569,7 @@ def check_kernels(log_n: int, dev, reps: int):
     check_uni_kernels(dev, gen, record, E)
     check_zk_kernels(dev, gen, record)
     check_parallel_kernels(dev, record, pts)
-    return rows, paths
+    return rows, paths, record
 
 
 # the kernel that no path of the JAX package, and so none of the port,
@@ -387,7 +594,7 @@ def check_parallel_kernels(dev, record, pts):
     from spartan_parallel_tpu_torch.core.consts import L
     from spartan_parallel_tpu_torch.ops import curve
 
-    from spartan_parallel_tpu_torch.ops import fq, msm
+    from spartan_parallel_tpu_torch.ops import fq
     from spartan_parallel_tpu_torch.ops import limbs as lb
     from spartan_parallel_tpu_torch.ops import sumcheck as sck
 
@@ -418,20 +625,10 @@ def check_parallel_kernels(dev, record, pts):
     # one of two ranks' block of the sharded MSM at 1024 points x 1024
     # rows (the NIZK 2^20's witness commit): K2 on 512 points
     half = pts.shape[0] // 2
-    scal = rand_field((2 * half, half), g, dev)
-    nz = sum(int((((scal[..., w >> 1] >> ((w & 1) * 8)) & 0xFF) != 0).sum())
-             for w in range(32))
-    adds = nz + 2 * half * (32 * 2 * 256 + 31)
-    msm_imads = (adds * FP_MUL_PER_ADD + 2 * half * 31 * 8 *
-                 FP_MUL_PER_DOUBLE) * IMAD_FP_MUL
-    record("msm_share", "msm.cu",
-           "spartan_parallel_tpu/parallel/msm_sharded.py:40",
-           lambda: msm.msm_dev(pts[:half], scal),
-           lambda: msm.msm_plain(pts[:half], scal), point_err,
-           half * 256 + 2 * half * half * E + 2 * half * 256, msm_imads,
-           reps_k=3, counter="msm_batched", path="multi_device",
-           plain_once=True, extra={"share_of": [2 * half, 2 * half],
-                                   "ranks": 2})
+    record_msm(record, "msm_share", pts[:half],
+               rand_field((2 * half, half), g, dev), "multi_device",
+               extra={"share_of": [2 * half, 2 * half], "ranks": 2},
+               replaces="spartan_parallel_tpu/parallel/msm_sharded.py:40")
 
     jax_curve = "spartan_parallel_tpu/ops/curve.py"
     for name, d, b in (("point_sum", 2, 1024), ("point_sum_4x1024", 4, 1024),
@@ -963,9 +1160,10 @@ def dp_run(num_proofs, log_cons: int, num_inputs: int, device,
             torch.cuda.synchronize()
 
     t0 = time.perf_counter()
+    t_commit = timer.Timer("witness_commit")
     comms = [[s.poly_w[p].commit(gens.gens_pc, None)[0] for p in range(P)]
              for s in secs]
-    sync()
+    t_commit.stop(device)
     commit_s = time.perf_counter() - t0
     def prove():
         return rp.R1CSProof.prove(P, qmax, num_proofs, n, [n] * P, secs,
@@ -1663,7 +1861,14 @@ def main() -> int:
                         or "spill" in ln]
                     for k, v in built.items()}})
 
-    rows, paths = check_kernels(LOG_KERNEL, dev, REPS)
+    if "msm" in built:
+        from spartan_parallel_tpu_torch.ops import msm
+
+        emit({"phase": "ptxas_msm", "card": card,
+              "kernels": ptxas_kernels(built["msm"][1]),
+              "k_msm_window_blocks_per_sm": msm.window_occupancy()})
+
+    rows, paths, record = check_kernels(LOG_KERNEL, dev, REPS)
 
     # Phase 3: the card proves with device-resident rounds, the CPU with
     # the host loop; the bytes must agree, and the card must have run one
@@ -1751,7 +1956,8 @@ def main() -> int:
     counts = {}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    run = nizk_run(args.log_cons, 10, dev, seed_tape=True)
+    with k2_trace() as k2:
+        run = nizk_run(args.log_cons, 10, dev, seed_tape=True)
     counts["nizk"] = dict(kernels.launches)
     refs["nizk"] = run["bytes"]
     expect_reject(run, dev)
@@ -1764,7 +1970,10 @@ def main() -> int:
           "upstream_compressed_bytes": 48134,
           "stages_s": run["stages"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts["nizk"], "tamper_rejected": True})
+          "launches": counts["nizk"], "tamper_rejected": True,
+          "k2": {"witness_commit": k2.summary("witness_commit"),
+                 "prove": k2.summary("NIZK::prove"),
+                 "verify": k2.summary("NIZK::verify")}})
     del run
 
     # BASELINE config 4 at 2^20 sigma work: skewed counts take the
@@ -1774,7 +1983,9 @@ def main() -> int:
                              ("dp_uniform", [256] * 4)):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        run = dp_run(num_proofs, 10, 10, dev, seed_tape=path == "dp_skewed")
+        with k2_trace() as k2:
+            run = dp_run(num_proofs, 10, 10, dev,
+                         seed_tape=path == "dp_skewed")
         counts[path] = dict(kernels.launches)
         if path == "dp_skewed":
             refs["dp_skewed"] = run["bytes"]
@@ -1811,7 +2022,9 @@ def main() -> int:
               "proof_bytes_compressed": run["compressed"],
               "stages_s": run["stages_s"],
               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "launches": counts[path], "tamper_rejected": True})
+              "launches": counts[path], "tamper_rejected": True,
+              "k2": {"witness_commit": k2.summary("witness_commit"),
+                     "prove": k2.summary("R1CSProof::prove")}})
         del run
     # the upstream SNARK with SPARK: BASELINE config 2, then the upstream
     # README instance, whose launches the K6 rows report
@@ -1843,7 +2056,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
     tape = b"\x0f" * 32
-    run = zkvm_run(zk_args, zk_pa, dev, tape)
+    with k2_trace() as k2:
+        run = zkvm_run(zk_args, zk_pa, dev, tape)
     counts["findmin"] = dict(kernels.launches)
     # the same proof with the host round loop on the card
     from spartan_parallel_tpu_torch.utils import timer
@@ -1896,8 +2110,22 @@ def main() -> int:
           "stages_s": run["stages_s"], "proof_bytes": len(run["bytes"]),
           "proof_bytes_compressed": run["compressed"],
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts["findmin"], "tamper_rejected": True})
+          "launches": counts["findmin"], "tamper_rejected": True,
+          "k2": {"input_commit": k2.summary("input_commit"),
+                 "prove": k2.summary("SNARK::prove"),
+                 "all": k2.summary()}})
     del run, zk_args, zk_pa
+    # K2 at find_min's largest block commit, the shape read from the run
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+
+    fb, fn = k2.largest("input_commit")
+    g8 = torch.Generator(device=dev)
+    g8.manual_seed(8)
+    record_msm(record, "msm_findmin_block0", MultiCommitGens(
+        fn, b"chip_smoke_findmin").device_points(dev)[:fn],
+        rand_field((fb, fn), g8, dev), "findmin",
+        extra={"shape_from": "the largest K2 launch of phase 8's "
+                              "input_commit"})
     k5 = [f"sc_pc_round_{form}{fused}" for form in ("x", "xs", "q", "qs", "qi")
           for fused in ("", "_fused")]
     if not all(counts["dp_skewed"].get(k) for k in k5):

@@ -1,12 +1,50 @@
-// Host build of the per-element arithmetic in fq.cuh, fp.cuh and curve.cuh
-// and of the device transcript and round tail in keccak.cuh, ristretto.cuh
-// and zk_round.cuh (g++, no CUDA), so the CPU tests can hold the kernels'
-// arithmetic against the plain PyTorch versions and the JAX package. Each
-// entry maps over n elements of 16-limb int32 values (points: 4 x 16 limbs;
-// states and encodings: one int32 per byte).
+// Host build of the per-element arithmetic in fq.cuh, fp.cuh, curve.cuh
+// and msm.cuh and of the device transcript and round tail in keccak.cuh,
+// ristretto.cuh and zk_round.cuh (g++, no CUDA), so the CPU tests can hold
+// the kernels' arithmetic against the plain PyTorch versions and the JAX
+// package. Each entry maps over n elements of 16-limb int32 values (points:
+// 4 x 16 limbs; states and encodings: one int32 per byte).
+#include <vector>
+
 #include "curve.cuh"
 #include "fq.cuh"
+#include "msm.cuh"
 #include "zk_round.cuh"
+
+// K2's host model (csrc/msm.cu): the weighted bucket sum in the order the
+// window kernel forms it. One warp holds a window's 128 buckets, lane l
+// the four B_{l + 1 + 32 i} (i = 0..3: the
+// small digits of a top window, which a canonical scalar keeps below 17,
+// spread over 16 lanes), and walks them from the top with a running sum:
+// r = S_l = sum_i B_{l+1+32i} and w = W_l = sum_i i B_{l+1+32i}
+// (lane_sums). Then
+//   sum_m m B_m = 32 A + B,  A = sum_l W_l,  B = sum_l Q_l,
+//   Q_l = sum_{l' >= l} S_l':
+// a suffix scan of the S_l over the lanes (5 levels), then the halving
+// trees of A and B side by side (5 levels, 16 lanes each at the first);
+// the 5 doublings of A wait for the row combine. bucket_combine is that
+// order of additions for `lanes` lanes (a power of two; bucket
+// l + 1 + lanes i at lane l), r[l] and w[l] in, A in w[0] and B in r[0]
+// (the sum: lanes A + B).
+static void lane_sums(Point& r, Point& w, const Point* const* bucket4) {
+  pt_identity(r);
+  pt_identity(w);
+  for (int i = 3; i >= 0; --i) {
+    pt_add(r, r, *bucket4[i]);
+    if (i > 0) pt_add(w, w, r);
+  }
+}
+
+static void bucket_combine(Point* r, Point* w, int lanes) {
+  for (int off = 1; off < lanes; off <<= 1)  // ascending l reads r[l + off]
+    for (int l = 0; l + off < lanes; ++l)    // before this level updates it
+      pt_add(r[l], r[l], r[l + off]);
+  for (int off = lanes >> 1; off > 0; off >>= 1)
+    for (int l = 0; l < off; ++l) {
+      pt_add(w[l], w[l], w[l + off]);
+      pt_add(r[l], r[l], r[l + off]);
+    }
+}
 
 extern "C" {
 
@@ -70,6 +108,48 @@ void host_pt_double(const int32_t* p, int32_t* out, long n) {
     pt_double(a, a);
     pt_store(out + 64 * i, a);
   }
+}
+
+void host_signed_digits(const int32_t* s, int32_t* dig, int32_t* carry,
+                        long n) {
+  for (long i = 0; i < n; ++i) {
+    uint32_t x[8];
+    int8_t d[MSM_NWIN];
+    load16(s + 16 * i, x);
+    carry[i] = (int32_t)signed_digits(d, x);
+    for (int w = 0; w < MSM_NWIN; ++w) dig[MSM_NWIN * i + w] = d[w];
+  }
+}
+
+// out[i] = p[i] + q[i], or p[i] - q[i] where neg[i], through q's cached form
+void host_pt_add_cached(const int32_t* p, const int32_t* q,
+                        const int32_t* neg, int32_t* out, long n) {
+  for (long i = 0; i < n; ++i) {
+    Point a, b;
+    Cached c;
+    pt_load(a, p + 64 * i);
+    pt_load(b, q + 64 * i);
+    pt_to_cached(c, b);
+    if (neg[i]) cached_neg(c);
+    pt_add_cached(a, a, c);
+    pt_store(out + 64 * i, a);
+  }
+}
+
+// sum_m m B_m of 4 x lanes buckets B_1.. (bucket m at index m - 1; lane
+// l holds B_{l + 1 + lanes i}) by lane_sums and bucket_combine
+void host_bucket_combine(const int32_t* buckets, long lanes, int32_t* out) {
+  std::vector<Point> b(4 * lanes), r(lanes), w(lanes);
+  for (long m = 0; m < 4 * lanes; ++m) pt_load(b[m], buckets + 64 * m);
+  for (long l = 0; l < lanes; ++l) {
+    const Point* b4[4];
+    for (int i = 0; i < 4; ++i) b4[i] = &b[l + lanes * i];
+    lane_sums(r[l], w[l], b4);
+  }
+  bucket_combine(r.data(), w.data(), (int)lanes);
+  for (long k = 1; k < lanes; k <<= 1) pt_double(w[0], w[0]);
+  pt_add(w[0], w[0], r[0]);
+  pt_store(out, w[0]);
 }
 
 void host_keccak(const int32_t* in, int32_t* out, long n) {

@@ -35,8 +35,8 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
-_HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "reduce.cuh",
-            "keccak.cuh", "ristretto.cuh", "zk_round.cuh")
+_HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "msm.cuh",
+            "reduce.cuh", "keccak.cuh", "ristretto.cuh", "zk_round.cuh")
 SOURCES = ("fq", "msm", "spmv", "sumcheck", "product", "uni", "zk_round")
 
 _P = ctypes.c_void_p
@@ -50,7 +50,9 @@ _ENTRIES = {
     "fq_bind_launch": ("fq", [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]),
     "fq_dot_launch": ("fq", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                              _I64, _P]),
-    "msm_launch": ("msm", [_P, _P, _P, _P, _I64, _I64, _P]),
+    "msm_launch": ("msm", [_P] * 7 + [_I64, _I64, _P]),
+    "msm_window_occupancy": ("msm", [_P]),
+    "msm_chunking": ("msm", [_I64, _P, _P]),
     "fold_points_launch": ("msm", [_P, _P, _P, _P, _I64, _P]),
     "point_sum_launch": ("msm", [_P, _P, _P, _I64, _I64, _P]),
     "scale_points_launch": ("msm", [_P, _P, _P, _I64, _P]),

@@ -49,14 +49,29 @@ def test_fq_kernels(dev):
 
 
 def test_msm_and_fold_kernels(dev):
+    """K2 against msm_plain at 3 x 16 and at the paths' shapes: single
+    rows of 34 and 514 points (the bullet rounds), 1024 rows x 1025 points
+    (the NIZK 2^20's commit), and points beyond one launch (1 x 8193, 65 x
+    2049: chunks summed by K12); scalars random and with bytes 0-30 all
+    0x80 (every digit negative, a carry into each window); then the fold."""
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
 
     pts = MultiCommitGens(16, b"gpu_test").device_points(dev)[:16]
-    scal = rand_field((3, 16), dev, 4)
-    got = [p.compress() for p in curve.decode_points(msm.msm_dev(pts, scal))]
-    want = [p.compress() for p in curve.decode_points(
-        msm.msm_plain(pts, scal))]
-    assert got == want
+    many = curve.multiples(pts, 512).reshape(-1, 4, 16)  # k G_j, k < 512
+    many = torch.cat([many, pts[:1]])
+    edge = torch.full((65, 2049, 16), 0x8080, dtype=torch.int32, device=dev)
+    edge[..., 15] = 0x0F80
+    cases = [(pts, rand_field((3, 16), dev, 4))]
+    for seed, (b, n) in enumerate(((1, 34), (1, 514), (1024, 1025),
+                                   (1, 8193), (65, 2049)), 10):
+        cases.append((many[-n:], rand_field((b, n), dev, seed)))
+    cases += [(many[-34:], edge[:1, :34]), (many[-2049:], edge)]
+    for p, scal in cases:
+        got = [q.compress() for q in curve.decode_points(
+            msm.msm_dev(p, scal))]
+        want = [q.compress() for q in curve.decode_points(
+            msm.msm_plain(p, scal))]
+        assert got == want, tuple(scal.shape)
     k = curve.scalar_limbs([L - 1, 12345], dev)
     got = curve.fold_points(pts[:8], pts[8:], L - 1, 12345)
     want = curve.fold_points_plain(pts[:8], pts[8:], k)

@@ -1,8 +1,10 @@
 """The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh,
-curve.cuh) and the device round's transcript, encoding, comb commitment
-and tail (csrc/keccak.cuh, ristretto.cuh, zk_round.cuh) built for the host
-with g++ (csrc/host_check.cpp) and held against the port's plain PyTorch
-versions and host oracles on random inputs. Only the launch code of the
+curve.cuh), K2's signed digits, cached points and bucket combination
+(csrc/msm.cuh, host_check.cpp), and the device round's
+transcript, encoding, comb commitment and tail (csrc/keccak.cuh,
+ristretto.cuh, zk_round.cuh) built for the host with g++
+(csrc/host_check.cpp) and held against the port's plain PyTorch versions
+and host oracles on random and edge inputs. Only the launch code of the
 kernels stays unchecked on a host without a card."""
 
 import ctypes
@@ -17,12 +19,15 @@ import torch
 from spartan_parallel_tpu_torch.core.consts import L, P
 from spartan_parallel_tpu_torch.core.edwards import RistrettoPoint
 from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
-from spartan_parallel_tpu_torch.ops import curve, fp, fq
+from spartan_parallel_tpu_torch.ops import curve, fp, fq, msm
+from spartan_parallel_tpu_torch.ops import limbs as lb
 from spartan_parallel_tpu_torch.ops import ristretto_dev as rdev
 from spartan_parallel_tpu_torch.ops import transcript_dev as tdev
 from spartan_parallel_tpu_torch.ops import zk_round as zkr
 from spartan_parallel_tpu_torch.utils.keccak import keccak_f1600
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+from .torch_shared import msm_edge_scalars
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "spartan_parallel_tpu_torch", "csrc")
@@ -45,6 +50,9 @@ def lib(tmp_path_factory):
     lib.host_fp_mul.argtypes = [vp, vp, vp, n]
     lib.host_pt_add.argtypes = [vp, vp, vp, n]
     lib.host_pt_double.argtypes = [vp, vp, n]
+    lib.host_signed_digits.argtypes = [vp, vp, vp, n]
+    lib.host_pt_add_cached.argtypes = [vp, vp, vp, vp, n]
+    lib.host_bucket_combine.argtypes = [vp, n, vp]
     lib.host_keccak.argtypes = [vp, vp, n]
     lib.host_strobe_op.argtypes = [vp, ctypes.c_int, vp, vp, n,
                                    ctypes.c_int]
@@ -118,6 +126,70 @@ def test_point_add_and_double(lib):
     lib.host_pt_double(ptr(p), ptr(out), len(pts))
     assert np.array_equal(out, curve.point_double(
         torch.from_numpy(p)).numpy())
+
+
+def compressed(arr):
+    return [p.compress() for p in curve.decode_points(arr)]
+
+
+def test_signed_digits(lib):
+    """K2's recoding (csrc/msm.cuh signed_digits) at its edges and on
+    random scalars: sum_w d_w 2^(8 w) is the scalar, every digit in
+    [-128, 128), no carry out of window 31 for a canonical scalar (any
+    s < l < 2^253), equal to the plain version's digits. From 127 * 2^248
+    up a carry leaves window 31: no canonical scalar comes near."""
+    vals = msm_edge_scalars() + rand_mod(L, 16)
+    limbs = np.ascontiguousarray(curve.scalar_limbs(vals, "cpu").numpy())
+    dig = np.zeros((len(vals), 32), dtype=np.int32)
+    carry = np.ones(len(vals), dtype=np.int32)
+    lib.host_signed_digits(ptr(limbs), ptr(dig), ptr(carry), len(vals))
+    assert not carry.any()
+    assert dig.min() >= -128 and dig.max() < 128
+    assert [sum(int(d) << (8 * w) for w, d in enumerate(row))
+            for row in dig] == vals
+    assert np.array_equal(dig, msm.signed_digits(
+        torch.from_numpy(limbs)).numpy())
+    big = lb.ints_to_limbs([(127 << 248) - 1, (127 << 248) + (0x80 << 240),
+                            128 << 248])
+    big = np.ascontiguousarray(big.astype(np.int32))
+    lib.host_signed_digits(ptr(big), ptr(dig), ptr(carry), 3)
+    assert list(carry[:3]) == [0, 1, 1]
+
+
+def test_cached_addition(lib):
+    """p + q and p - q through q's cached form (pt_to_cached, cached_neg,
+    pt_add_cached) against the host points, the identity on either
+    side."""
+    B0 = RistrettoPoint.basepoint()
+    pts = [B0.scalar_mul(x) for x in rand_mod(L, 8)[3:]] + \
+        [RistrettoPoint.identity()]
+    p = curve.encode_points(pts + pts[:3] + [pts[-1]])
+    q = curve.encode_points(pts[::-1] + [pts[-1]] * 3 + [pts[0]])
+    neg = np.array([0, 1] * 5, dtype=np.int32)
+    out = np.zeros_like(p)
+    lib.host_pt_add_cached(ptr(p), ptr(q), ptr(neg), ptr(out), len(neg))
+    hp, hq = curve.decode_points(p), curve.decode_points(q)
+    assert compressed(out) == [(a - b if s else a + b).compress()
+                               for a, b, s in zip(hp, hq, neg)]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+def test_bucket_combine(lib, lanes):
+    """The window kernel's bucket sum in its order of additions
+    (host_check.cpp lane_sums, then bucket_combine's suffix scan over the
+    lanes and its two halving trees, lanes A + B) at 4, 8, 16 and 32
+    buckets against sum_m m B_m computed naively, identity buckets among
+    them."""
+    B0 = RistrettoPoint.basepoint()
+    bk = [B0.scalar_mul(x) for x in rand_mod(L, 4 * lanes + 5)[5:]]
+    bk[1] = RistrettoPoint.identity()
+    arr = curve.encode_points(bk)
+    out = np.zeros((1, 4, 16), dtype=np.int32)
+    lib.host_bucket_combine(ptr(arr), lanes, ptr(out))
+    want = RistrettoPoint.identity()
+    for m, b in enumerate(bk, 1):
+        want = want + b.scalar_mul(m)
+    assert compressed(out) == [want.compress()]
 
 
 def test_keccak_and_strobe(lib):

@@ -96,14 +96,14 @@ def test_generators_and_tape_match_jax():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port in a fresh interpreter loads
-    neither jax nor the JAX package."""
+    """Importing every module of the port, chip_smoke.py and k2_turns.py
+    in a fresh interpreter loads neither jax nor the JAX package."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import spartan_parallel_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, k2_turns\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'spartan_parallel_tpu'"
         " or m.startswith('spartan_parallel_tpu.')]\n"

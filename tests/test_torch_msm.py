@@ -3,8 +3,11 @@ it: the port's plain path against the JAX package's ops/curve.py and
 ops/msm.py on the same inputs. Points are compared after ristretto
 compression; the tolerance is exact equality."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from spartan_parallel_tpu.core.consts import L
@@ -13,6 +16,8 @@ from spartan_parallel_tpu.ops import curve as jcurve
 from spartan_parallel_tpu.ops import limbs as jlb
 from spartan_parallel_tpu.ops import msm as jmsm
 from spartan_parallel_tpu_torch.ops import curve, msm
+
+from .torch_shared import in_fresh_process, msm_edge_scalars, shared_result
 
 rng = np.random.default_rng(31)
 
@@ -66,15 +71,63 @@ def test_fold_points_matches_jax():
     assert compressed_port(got) == compressed_jax(want)
 
 
-def test_msm_batched_matches_jax():
-    """tests/test_msm.py's batched shape, with its edge digits."""
-    n, b = 16, 2
-    pts = points(n - 1)
-    rows = [[rand_scalar() for _ in range(n)] for _ in range(b)]
+@functools.lru_cache(maxsize=1)
+def msm_cases():
+    """The two MSM comparisons' points and scalar rows, from a seed of
+    their own (every pytest-xdist worker makes the same): tests/test_msm.py's
+    batched shape, 2 rows of 16 points, with its edge digits; and a bullet
+    round's single row of N = 34 points (no multiple of K2's 2048-point
+    tile or of its 4 chunks), the scalars at the signed recoding's edges
+    (0, 1, l - 1, 0x7F / 0x80 / 0xFF bytes, a rippling carry)."""
+    r = np.random.default_rng(37)
+
+    def scalar():
+        return int.from_bytes(r.bytes(40), "little") % L
+
+    def pts(n):
+        B0 = RistrettoPoint.basepoint()
+        return [B0.scalar_mul(scalar()) for _ in range(n)] + \
+            [RistrettoPoint.identity()]
+
+    rows = [[scalar() for _ in range(16)] for _ in range(2)]
     rows[0][0] = 0
     rows[0][1] = L - 1
     rows[0][2] = rows[0][3] = 0x0101
+    edge = msm_edge_scalars()
+    vals = edge[:3] + edge[-4:] + edge[3:96:4] + [scalar() for _ in range(3)]
+    assert len(vals) == 34
+    return [(pts(15), rows), (pts(33), [vals])]
+
+
+def jax_msms():
+    """The JAX package's ops/msm.py on each case, compressed (run in a
+    fresh process: see tests/torch_shared.py)."""
+    return [[p.compress() for p in jmsm.msm(
+        enc_jax(pts), np.stack([jlb.ints_to_limbs(r) for r in rows]))]
+        for pts, rows in msm_cases()]
+
+
+@pytest.fixture(scope="module")
+def jax_msm_refs(tmp_path_factory):
+    return shared_result(tmp_path_factory, "msm_jax_refs",
+                         lambda: in_fresh_process(jax_msms))
+
+
+def port_msm(case):
+    pts, rows = case
     sl = np.stack([jlb.ints_to_limbs(r) for r in rows])
-    want = jmsm.msm(enc_jax(pts), sl)
-    got = msm.msm(enc_port(pts), torch.from_numpy(sl.astype(np.int32)))
-    assert [p.compress() for p in got] == [p.compress() for p in want]
+    return [p.compress() for p in msm.msm(
+        enc_port(pts), torch.from_numpy(sl.astype(np.int32)))]
+
+
+def test_msm_batched_matches_jax(jax_msm_refs):
+    """tests/test_msm.py's batched shape, with its edge digits."""
+    assert port_msm(msm_cases()[0]) == jax_msm_refs[0]
+
+
+def test_msm_signed_digits_match_jax(jax_msm_refs):
+    """msm_plain's signed recoding (the kernel's, csrc/msm.cuh) at a
+    bullet round's single row of N = 34 points, the scalars at the
+    recoding's edges, against the JAX package's 8-bit unsigned
+    windows."""
+    assert port_msm(msm_cases()[1]) == jax_msm_refs[1]

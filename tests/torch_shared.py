@@ -6,7 +6,8 @@ A fixture that proves with the JAX package (minutes of XLA compiles on a
 cold cache) computes its plain result once per run through
 `shared_result`; the other workers wait for it and read it back.
 `in_fresh_process` runs a computation in a new interpreter, so that the
-XLA executables it compiles do not stay in a worker. `device_rounds`
+XLA executables it compiles do not stay in a worker. `msm_edge_scalars`
+lists the scalars at the edges of K2's signed digit recoding. `device_rounds`
 gives CPU tables the port's device-resident sumcheck rounds. `rank_jobs`
 is what each rank of a multi-rank launch runs
 (spartan_parallel_tpu_torch._dryrun_stages.launch).
@@ -66,6 +67,25 @@ def device_rounds():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(sumcheck, "_device_rounds_on", lambda device: True)
         yield
+
+
+def msm_edge_scalars() -> list:
+    """Canonical scalars at the edges of K2's signed 8-bit recoding
+    (csrc/msm.cuh signed_digits: a byte plus the carry in, from 128 up,
+    becomes itself - 256 and a carry out): 0, 1, l - 1; byte w alone at
+    0x7F, 0x80 and 0xFF for every window w below the top; bytes 0-30 all
+    at 0x7F, 0x80 or 0xFF under a top byte of 0x0F; a carry from a 0x80
+    byte that ripples through seventeen 0xFF bytes."""
+    from spartan_parallel_tpu_torch.core.consts import L
+
+    out = [0, 1, L - 1]
+    out += [v << (8 * w) for w in range(31) for v in (0x7F, 0x80, 0xFF)]
+    out += [int.from_bytes(bytes([v] * 31 + [0x0F]), "little")
+            for v in (0x7F, 0x80, 0xFF)]
+    out.append(int.from_bytes(bytes([0] * 3 + [0x80] + [0xFF] * 17
+                                    + [0] * 10 + [0x0F]), "little"))
+    assert all(0 <= s < L for s in out)
+    return out
 
 
 def rank_jobs(mesh, device, jobs):
