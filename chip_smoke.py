@@ -5,8 +5,9 @@
     python3 chip_smoke.py --log-cons 16   # a smaller NIZK in phase 4
 
 Phases, each printing one JSON line:
-  1. the card (nvidia-smi name and power limit) and the build of the seven
-     CUDA kernel sources (csrc/*.cu, one nvcc per source, in parallel);
+  1. the card (nvidia-smi name and power limit) and the build of the
+     seven CUDA kernel sources and the fp_chain measurement kernel
+     (csrc/*.cu, one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (exact equality; points after ristretto
      compression), with the kernel's time, the plain version's time and
@@ -67,8 +68,23 @@ bytes) and, after phase 8, find_min's largest block commit (its shape
 read from that run), each with its bound from the redesign's operations
 and the first design's beside it; a line before phase 2 gives msm.cu's
 ptxas registers, spills and shared memory and the window kernel's blocks
-an SM; phases 4, 5 and 8 give K2's launches and CUDA-event ms inside
-their witness commits and proves (K2Trace).
+an SM, and `ptxas_zk` the same for K8-K11 and k_fold with the stack
+frames of the functions they call (K11 may keep at most K11_STACK_MAX
+bytes). Phases 4, 5 and 8 time their proves untraced, then prove the
+same tape once more under kernel_trace, whose CUDA events time every
+launch: the lines give that run's prove seconds (`traced_prove_s`, the
+events' cost beside `prove_s`), K2's, K11's and fold_points' launches and
+ms inside its witness commits and proves (`k2`, `k11`, `fold`), and every
+kernel's, summed over its launches (`by_kernel`).
+Phase 2 starts with `fp_chain`: csrc/fp_chain.cu runs a 4096-step
+dependent chain of field products on one warp for fp.cuh's product as
+K9-K11 called it, inlined, fe.cuh's product and squaring, fp10.cuh's
+ten-lane product and squaring (the ENCODE's) and fq.cuh's Montgomery
+product, checks each chain against Python's pow and prints ns per
+product. fold_points is held at every pair count the bullet rounds
+launch (512 ... 32) and at 8; a `chain_products` line gives the
+dependent products on K11's and the fold's critical path in the
+one-thread designs and in these, counted from the code.
 Phase 2 also holds K7 (the powers of the shift proofs' challenge) and the
 rlc dot at the find_min path's shape and K7 at 2^20, and the
 device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
@@ -312,16 +328,26 @@ def check_msm_kernels(dev, gen, record, points):
 
 def ptxas_kernels(log: str) -> dict:
     """Each kernel of one `nvcc -Xptxas -v` log: registers, spill bytes,
-    stack frame and static shared memory."""
-    out, cur = {}, None
+    stack frame, cumulative stack (with its callees) and static shared
+    memory; the __noinline__ device functions' frames under
+    "functions"."""
+    out, cur, funcs = {}, None, {}
+
+    def short(name):
+        z = re.match(r"_Z(\d+)", name)  # a C++ name: _Z<len><name>...
+        return name[z.end():z.end() + int(z.group(1))] if z else name
+
+    entry = None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1)
-            z = re.match(r"_Z(\d+)", name)  # a C++ name: _Z<len><name>...
-            if z:
-                name = name[z.end():z.end() + int(z.group(1))]
-            cur = out.setdefault(name, {})
+            entry = m.group(1)
+            cur = out.setdefault(short(entry), {})
+            continue
+        m = re.search(r"Function properties for (\w+)", ln)
+        if m:
+            cur = (out.setdefault(short(entry), {}) if m.group(1) == entry
+                   else funcs.setdefault(short(m.group(1)), {}))
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", ln)
@@ -330,61 +356,86 @@ def ptxas_kernels(log: str) -> dict:
                        spill_store_bytes=int(m.group(2)),
                        spill_load_bytes=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", ln)
-        if m and cur is not None:
-            cur["registers"] = int(m.group(1))
+        if m and entry is not None:
+            k = out.setdefault(short(entry), {})
+            k["registers"] = int(m.group(1))
             sm = re.search(r"(\d+) bytes smem", ln)
-            cur["smem_bytes"] = int(sm.group(1)) if sm else 0
+            k["smem_bytes"] = int(sm.group(1)) if sm else 0
+            cs = re.search(r"(\d+) bytes cumulative stack size", ln)
+            k["cumulative_stack_bytes"] = int(cs.group(1)) if cs else 0
+    if funcs:
+        out["functions"] = funcs
     return out
 
 
-class K2Trace:
-    """Every K2 launch (ops/msm.py msm_dev on a card tensor) timed by
-    CUDA events, with its (rows, points) and the stage Timers
-    (utils/timer.py) and `stage` sections open around it."""
+# the kernels whose launches traced() sums by name (their counters), and
+# the launch arguments that give a launch's shape
+TRACED = {"k2": "msm_batched", "k11": "zk_round_tail", "fold": "fold_points"}
+SHAPE_ARGS = {"msm_launch": (7, 8), "zk_round_tail_launch": (1,),
+              "fold_points_launch": (4,)}
+
+
+class KernelTrace:
+    """Every kernel launch (ops/kernels.py launch, by its counter), timed
+    by CUDA events, with the stage Timers (utils/timer.py) open around it;
+    K2's (rows, points), K11's table sets and fold_points' pairs as its
+    shape. The events cost each launch two records on the stream: time
+    the path in a run without a trace."""
 
     def __init__(self):
-        self.calls, self.open = [], []
+        self.launches, self.open = [], []
 
-    @contextlib.contextmanager
-    def stage(self, label):
-        self.open.append(label)
-        try:
-            yield
-        finally:
-            self.open.remove(label)
-
-    def summary(self, stage=None) -> dict:
-        """Launches, ms and ms by shape of the calls under `stage`."""
+    def summary(self, stage=None, kernel="k2") -> dict:
+        """Launches, ms and ms by shape of `kernel`'s launches under
+        `stage` (None: all)."""
         import torch
 
         torch.cuda.synchronize()
         out = {"launches": 0, "ms": 0.0, "by_shape": {}}
-        for c in self.calls:
-            if stage is not None and stage not in c["stages"]:
+        for c in self.launches:
+            if c["counter"] != TRACED[kernel] or (
+                    stage is not None and stage not in c["stages"]):
                 continue
             ms = c["ev"][0].elapsed_time(c["ev"][1])
-            key = "%dx%d" % c["shape"]
+            key = "x".join(str(d) for d in c["shape"])
             n, t = out["by_shape"].get(key, (0, 0.0))
             out["by_shape"][key] = (n + 1, t + ms)
             out["launches"] += 1
             out["ms"] += ms
         return out
 
+    def by_kernel(self, stage=None) -> dict:
+        """(launches, ms) of each kernel counter under `stage`, the most
+        time first: the time each kernel spends on the path, summed over
+        its launches."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for c in self.launches:
+            if stage is None or stage in c["stages"]:
+                n, t = out.get(c["counter"], (0, 0.0))
+                out[c["counter"]] = (n + 1,
+                                     t + c["ev"][0].elapsed_time(c["ev"][1]))
+        return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
+
     def largest(self, stage):
-        """(rows, points) of the largest launch under `stage`."""
-        return max((c["shape"] for c in self.calls if stage in c["stages"]),
+        """(rows, points) of the largest K2 launch under `stage`."""
+        return max((c["shape"] for c in self.launches
+                    if c["counter"] == TRACED["k2"] and stage in c["stages"]),
                    key=lambda s: s[0] * s[1])
 
 
 @contextlib.contextmanager
-def k2_trace():
+def kernel_trace():
     import torch
 
-    from spartan_parallel_tpu_torch.ops import msm
+    from spartan_parallel_tpu_torch.ops import kernels
     from spartan_parallel_tpu_torch.utils import timer
 
-    tr = K2Trace()
-    dev_fn, init, stop = msm.msm_dev, timer.Timer.__init__, timer.Timer.stop
+    tr = KernelTrace()
+    init, stop = timer.Timer.__init__, timer.Timer.stop
+    launch = kernels.launch
 
     def traced_init(self, label):
         init(self, label)
@@ -395,25 +446,31 @@ def k2_trace():
             del tr.open[len(tr.open) - 1 - tr.open[::-1].index(self.label)]
         return stop(self, sync)
 
-    def traced_dev(points, scalars):
-        if points.device.type != "cuda":
-            return dev_fn(points, scalars)
+    def traced_launch(counter, entry, *args):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        out = dev_fn(points, scalars)
+        launch(counter, entry, *args)
         ev[1].record()
-        rows = 1 if scalars.dim() == 2 else scalars.shape[0]
-        tr.calls.append({"shape": (rows, points.shape[0]), "ev": ev,
-                         "stages": tuple(tr.open)})
-        return out
+        tr.launches.append({
+            "counter": counter, "ev": ev, "stages": tuple(tr.open),
+            "shape": tuple(args[i] for i in SHAPE_ARGS.get(entry, ()))})
 
-    msm.msm_dev = traced_dev
     timer.Timer.__init__, timer.Timer.stop = traced_init, traced_stop
+    kernels.launch = traced_launch
     try:
         yield tr
     finally:
-        msm.msm_dev = dev_fn
         timer.Timer.__init__, timer.Timer.stop = init, stop
+        kernels.launch = launch
+
+
+def traced(tr, stages) -> dict:
+    """K2's, K11's and fold_points' summaries under each (key, stage), and
+    every kernel's launches and ms (`by_kernel`)."""
+    out = {kernel: {key: tr.summary(stage, kernel) for key, stage in stages}
+           for kernel in TRACED}
+    out["by_kernel"] = {key: tr.by_kernel(stage) for key, stage in stages}
+    return out
 
 
 def check_kernels(log_n: int, dev, reps: int):
@@ -497,19 +554,34 @@ def check_kernels(log_n: int, dev, reps: int):
     pts = gens.device_points(dev)[:side]
     check_msm_kernels(dev, gen, record, gens.device_points(dev))
     # the bullet rounds fold with a full-width challenge and its inverse:
-    # two random field elements below l. k_fold doubles 253 times, adds
-    # L + R once up front, then adds one point per bit set in kl | kr.
-    half = side // 2
+    # two random field elements below l, at every pair count the path
+    # launches (512 down to 32 for a side of 1024) and at 8. k_fold forms
+    # L + R and the three cached addends (11 products), then from the top
+    # set bit doubles once a bit and adds once a bit set in kl | kr (8
+    # products each): the least work of a joint double-and-add.
     kl, kr = fq.decode(rand_field((2,), gen, dev).cpu())
-    pl, pr = pts[:half], pts[half:]
-    adds = bin(kl | kr).count("1") + 1
-    fold_imads = half * (253 * FP_MUL_PER_DOUBLE + adds * FP_MUL_PER_ADD) \
-        * IMAD_FP_MUL
-    record("fold_points", "msm.cu", "spartan_parallel_tpu/ops/curve.py:159",
-           lambda: curve.fold_points(pl, pr, kl, kr),
-           lambda: curve.fold_points_plain(
-               pl, pr, curve.scalar_limbs([kl, kr], dev)),
-           point_err, 3 * half * 256, fold_imads)
+    top = max(kl, kr).bit_length() - 1
+    adds = bin(kl | kr).count("1") - 1
+    for half in (512, 256, 128, 64, 32, 8):
+        pl, pr = pts[:half], pts[half:2 * half]
+        fold_imads = half * (11 + (top + adds) * FP_MUL_PER_DOUBLE) \
+            * IMAD_FP_MUL
+        record("fold_points" + ("" if half == 512 else f"_{half}"),
+               "msm.cu", "spartan_parallel_tpu/ops/curve.py:159",
+               lambda pl=pl, pr=pr: curve.fold_points(pl, pr, kl, kr),
+               lambda pl=pl, pr=pr: curve.fold_points_plain(
+                   pl, pr, curve.scalar_limbs([kl, kr], dev)),
+               point_err, 3 * half * 256, fold_imads, counter="fold_points",
+               plain_once=True, extra={"pairs": half})
+    # counted, not measured: the dependent products on the critical path
+    # of K11 and of one fold, in the one-thread designs these replaced
+    # (old) and in these (new); the fold's at this run's scalars
+    emit({"phase": "chain_products", "counted_from": "the kernels' code",
+          "zk_round_tail": K11_CHAIN,
+          "fold_points": {"old": 253 * FP_MUL_PER_DOUBLE
+                          + (adds + 2) * FP_MUL_PER_ADD,
+                          "new": 4 + 2 * (top + adds),
+                          "top_bit": top, "additions": adds}})
 
     # K3 on the synthetic instance of 2^log_n constraints
     inst, _, _ = produce_synthetic_r1cs(1, [1], n, n, 10, device=dev)
@@ -1023,6 +1095,91 @@ def check_zk_kernels(dev, gen, record):
                   "note": "one block: a round is a dependent chain on one "
                           "SM; bound_ms is the card's, bound_ms_one_sm one "
                           "SM's share"})
+
+
+# The dependent products mod p and mod l on K11's critical path, counted
+# from the code (the `chain_products` line). Before (one thread; its
+# scalar steps' ~50 an estimate, FQ_MUL_PER_ROUND): four ENCODEs, and the
+# comb sums' point additions at 9 products each: 4 G + h's 4 window
+# additions and 6 halving levels, three of G + h at 1 + 6. After: Cy's
+# and beta's ENCODEs side by side (three on the path); an addition on four
+# lanes is 3 products deep; Cy's and beta's combs on 32 groups each (two
+# windows, their sum, 5 levels); the scalar steps' independent products on
+# separate lanes (csrc/zk_round.cuh): load 2 (interpolation, canonical
+# form), poly 6 (a challenge's two halves side by side, 2; Horner 3;
+# canonical 1), eval 9 (two challenges 4; target and r^3 2; a_i and
+# a_i d_i 2; canonical 1), finish 3 (the challenge 2, z 1); the
+# DotProductProof's canonical a_i run beside Cy's ENCODE.
+# the most stack frame K11 may keep: its products and permutations run in
+# registers, not through arrays in local memory
+K11_STACK_MAX = 64
+K11_CHAIN = {
+    "old": {"fp": 4 * FP_MUL_PER_ENCODE + (4 + 6 + 3 * (1 + 6)) * 9,
+            "fq": FQ_MUL_PER_ROUND},
+    "new": {"fp": 3 * FP_MUL_PER_ENCODE + 3 * ((4 + 6) + (1 + 6) + 8),
+            "fq": 2 + 6 + 9 + 3}}
+
+# the chain variants of csrc/fp_chain.cu, in its order
+FP_CHAIN_VARIANTS = ("fp_mul_noinline", "a_fp_mul_inline", "b_fe_mul",
+                     "b_fe_sqr", "fq_mul_noinline", "bc_fp10_mul_lanes",
+                     "bc_fp10_sqr_lanes")
+FP_CHAIN_STEPS = 4096
+
+
+def check_fp_chain(dev, card) -> dict:
+    """The product of the chains (csrc/fp_chain.cu, on no path): each
+    variant runs a 4096-step dependent chain of products on one warp (32
+    chains; the ten-lane variants three, ten lanes each) and its result is
+    checked against Python's pow; ns per product = time / steps, CUDA
+    events over 3 launches after one warm-up. The product's second factor
+    is the same at every step, so a compiler may read it once: the
+    squarings (b_fe_sqr, bc_fp10_sqr_lanes) are the chain an ENCODE
+    runs."""
+    import random
+
+    import torch
+
+    from spartan_parallel_tpu_torch.core.consts import L, P
+    from spartan_parallel_tpu_torch.ops import kernels
+    from spartan_parallel_tpu_torch.ops import limbs as lb
+
+    fn = kernels._lib("fp_chain").fp_chain_launch
+    rng = random.Random(11)
+    stream = torch.cuda.current_stream().cuda_stream
+    ns = {}
+    for v, name in enumerate(FP_CHAIN_VARIANTS):
+        mod = L if name.startswith("fq") else P
+        xs = [rng.randrange(mod) for _ in range(32)]
+        b = rng.randrange(mod)
+        x = torch.as_tensor(lb.ints_to_limbs(xs), device=dev)
+        bt = torch.as_tensor(lb.ints_to_limbs([b])[0], device=dev)
+        out = torch.empty_like(x)
+
+        def run(v=v, x=x, bt=bt, out=out):
+            rc = fn(v, x.data_ptr(), bt.data_ptr(), out.data_ptr(),
+                    FP_CHAIN_STEPS, stream)
+            if rc:
+                raise RuntimeError(f"fp_chain_launch: CUDA error {rc}")
+
+        ms = cuda_ms(run, 3)
+        got = [int(sum(int(w) << (16 * k) for k, w in enumerate(row)))
+               for row in out.cpu().numpy()]
+        if name.endswith("_lanes"):  # a chain a group, from its first x
+            xs = [xs[min(i - i % 10, 20)] for i in range(32)]
+        if name.startswith("fq"):
+            step = b * pow(1 << 256, -1, L) % L
+            want = [y * pow(step, FP_CHAIN_STEPS, L) % L for y in xs]
+        elif "sqr" in name:
+            want = [pow(y, 1 << FP_CHAIN_STEPS, P) for y in xs]
+        else:
+            want = [y * pow(b, FP_CHAIN_STEPS, P) % P for y in xs]
+        if got != want:
+            raise AssertionError(f"fp_chain variant {name} is wrong")
+        ns[name] = ms * 1e6 / FP_CHAIN_STEPS
+    row = {"phase": "fp_chain", "card": card, "steps": FP_CHAIN_STEPS,
+           "ns_per_product": ns}
+    emit(row)
+    return row
 
 
 def hash_poly_plain(addr, val, ts, rh2, rh, rm):
@@ -1852,7 +2009,7 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
 
     t0 = time.perf_counter()
-    built = kernels.build()
+    built = kernels.build(kernels.SOURCES + ("fp_chain",))
     emit({"phase": "build", "card": card,
           "seconds": time.perf_counter() - t0,
           "sources": {k: round(v[0], 2) for k, v in built.items()},
@@ -1868,6 +2025,22 @@ def main() -> int:
               "kernels": ptxas_kernels(built["msm"][1]),
               "k_msm_window_blocks_per_sm": msm.window_occupancy()})
 
+    if "zk_round" in built and "msm" in built:
+        pz = ptxas_kernels(built["zk_round"][1])
+        pm = ptxas_kernels(built["msm"][1])
+        emit({"phase": "ptxas_zk", "card": card,
+              "kernels": {"zk_round_tail_kernel": pz["zk_round_tail_kernel"],
+                          "comb_kernel": pz["comb_kernel"],
+                          "compress_kernel": pz["compress_kernel"],
+                          "keccak_kernel": pz["keccak_kernel"],
+                          "k_fold": pm["k_fold"]},
+              "functions": pz.get("functions", {})})
+        stack = pz["zk_round_tail_kernel"]["stack_bytes"]
+        if stack > K11_STACK_MAX:
+            raise AssertionError(f"zk_round_tail_kernel keeps {stack} bytes "
+                                 f"of stack (at most {K11_STACK_MAX})")
+
+    check_fp_chain(dev, card)
     rows, paths, record = check_kernels(LOG_KERNEL, dev, REPS)
 
     # Phase 3: the card proves with device-resident rounds, the CPU with
@@ -1956,25 +2129,31 @@ def main() -> int:
     counts = {}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()
-    with k2_trace() as k2:
-        run = nizk_run(args.log_cons, 10, dev, seed_tape=True)
+    run = nizk_run(args.log_cons, 10, dev, seed_tape=True)
     counts["nizk"] = dict(kernels.launches)
     refs["nizk"] = run["bytes"]
     expect_reject(run, dev)
-    emit({"phase": "nizk", "log_cons": args.log_cons, "card": card,
-          "setup_s": run["setup_s"], "comb_tables_s": run["comb_tables_s"],
-          "prove_s": run["prove_s"],
-          "verify_s": run["verify_s"],
-          "proof_bytes": len(run["bytes"]),
-          "proof_bytes_compressed": run["compressed"],
-          "upstream_compressed_bytes": 48134,
-          "stages_s": run["stages"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
-          "launches": counts["nizk"], "tamper_rejected": True,
-          "k2": {"witness_commit": k2.summary("witness_commit"),
-                 "prove": k2.summary("NIZK::prove"),
-                 "verify": k2.summary("NIZK::verify")}})
+    row = {"phase": "nizk", "log_cons": args.log_cons, "card": card,
+           "setup_s": run["setup_s"], "comb_tables_s": run["comb_tables_s"],
+           "prove_s": run["prove_s"],
+           "verify_s": run["verify_s"],
+           "proof_bytes": len(run["bytes"]),
+           "proof_bytes_compressed": run["compressed"],
+           "upstream_compressed_bytes": 48134,
+           "stages_s": run["stages"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": counts["nizk"], "tamper_rejected": True}
     del run
+    # the kernels' times from a second, traced run of the same proof
+    with kernel_trace() as tr:
+        again = nizk_run(args.log_cons, 10, dev, seed_tape=True)
+    if again["bytes"] != refs["nizk"]:
+        raise AssertionError("the traced NIZK differs")
+    emit({**row, "traced_prove_s": again["prove_s"],
+          **traced(tr, (("witness_commit", "witness_commit"),
+                        ("prove", "NIZK::prove"),
+                        ("verify", "NIZK::verify")))})
+    del again
 
     # BASELINE config 4 at 2^20 sigma work: skewed counts take the
     # q-size-classed prover (K5), uniform ones the dense prover (K4's q,
@@ -1983,9 +2162,7 @@ def main() -> int:
                              ("dp_uniform", [256] * 4)):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        with k2_trace() as k2:
-            run = dp_run(num_proofs, 10, 10, dev,
-                         seed_tape=path == "dp_skewed")
+        run = dp_run(num_proofs, 10, 10, dev, seed_tape=True)
         counts[path] = dict(kernels.launches)
         if path == "dp_skewed":
             refs["dp_skewed"] = run["bytes"]
@@ -2010,6 +2187,12 @@ def main() -> int:
                   "profiled_prove": prof})
             if base["bytes"] != run["bytes"]:
                 raise AssertionError("device rounds and host loop differ")
+        mem = torch.cuda.max_memory_allocated()
+        # the kernels' times from a second, traced run of the same proof
+        with kernel_trace() as tr:
+            again = dp_run(num_proofs, 10, 10, dev, seed_tape=True)
+        if again["bytes"] != run["bytes"]:
+            raise AssertionError("the traced data-parallel proof differs")
         sigma = sum(num_proofs) << 10
         emit({"phase": path, "num_proofs": num_proofs, "log_cons": 10,
               "num_inputs": 10, "sigma_work": sigma, "card": card,
@@ -2020,12 +2203,13 @@ def main() -> int:
               "upstream_single_core_cpu_prove_s": 4.442 * sigma / (1 << 20),
               "proof_bytes": len(run["bytes"]),
               "proof_bytes_compressed": run["compressed"],
-              "stages_s": run["stages_s"],
-              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "stages_s": run["stages_s"], "max_memory_allocated": mem,
               "launches": counts[path], "tamper_rejected": True,
-              "k2": {"witness_commit": k2.summary("witness_commit"),
-                     "prove": k2.summary("R1CSProof::prove")}})
-        del run
+              "traced_prove_s": again["prove_s"],
+              **traced(tr, (("witness_commit", "witness_commit"),
+                            ("prove", "R1CSProof::prove"),
+                            ("prove_sc_phase_one", "prove_sc_phase_one")))})
+        del run, again
     # the upstream SNARK with SPARK: BASELINE config 2, then the upstream
     # README instance, whose launches the K6 rows report
     for path, log_cons in (("snark16", 16), ("snark", 20)):
@@ -2056,9 +2240,9 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
     tape = b"\x0f" * 32
-    with k2_trace() as k2:
-        run = zkvm_run(zk_args, zk_pa, dev, tape)
+    run = zkvm_run(zk_args, zk_pa, dev, tape)
     counts["findmin"] = dict(kernels.launches)
+    mem = torch.cuda.max_memory_allocated()
     # the same proof with the host round loop on the card
     from spartan_parallel_tpu_torch.utils import timer
 
@@ -2100,6 +2284,11 @@ def main() -> int:
     if not same:
         raise AssertionError("device rounds and host loop differ")
     del base, again
+    # the kernels' times from one more run of the same proof, traced
+    with kernel_trace() as tr:
+        traced_run = zkvm_run(zk_args, zk_pa, dev, tape)
+    if traced_run["bytes"] != run["bytes"]:
+        raise AssertionError("the traced 9-stage SNARK differs")
     emit({"phase": "zkvm_findmin", "num_blocks": 9, "block_cons": 8192,
           "num_execs": list(FINDMIN_EXECS),
           "num_vars": zk_pa["num_vars"], "card": card,
@@ -2109,16 +2298,16 @@ def main() -> int:
           "upstream_single_core_cpu": UPSTREAM_FINDMIN,
           "stages_s": run["stages_s"], "proof_bytes": len(run["bytes"]),
           "proof_bytes_compressed": run["compressed"],
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated": mem,
           "launches": counts["findmin"], "tamper_rejected": True,
-          "k2": {"input_commit": k2.summary("input_commit"),
-                 "prove": k2.summary("SNARK::prove"),
-                 "all": k2.summary()}})
-    del run, zk_args, zk_pa
+          "traced_prove_s": traced_run["prove_s"],
+          **traced(tr, (("input_commit", "input_commit"),
+                        ("prove", "SNARK::prove"), ("all", None)))})
+    del run, traced_run, zk_args, zk_pa
     # K2 at find_min's largest block commit, the shape read from the run
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
 
-    fb, fn = k2.largest("input_commit")
+    fb, fn = tr.largest("input_commit")
     g8 = torch.Generator(device=dev)
     g8.manual_seed(8)
     record_msm(record, "msm_findmin_block0", MultiCommitGens(

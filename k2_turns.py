@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""K2 (the batched MSM, csrc/msm.cu) end to end, one tree at a time.
+"""The chain kernels end to end, one tree at a time: K2 (the batched MSM,
+csrc/msm.cu), K11 (the ZK round tail, csrc/zk_round.cu) and fold_points
+(csrc/msm.cu k_fold).
 
     python3 k2_turns.py --root DIR  # the port under DIR (another checkout)
 
@@ -7,14 +9,23 @@ Proves with the port found under --root (another checkout, e.g. a parent
 commit unpacked by `git archive`, or this one) on one CUDA card: the NIZK
 at 2^20 x 2^20 x 10 inputs (chip_smoke.py phase 4), the data-parallel
 R1CSProof of BASELINE config 4 with skewed counts [512, 128, 32, 32]
-(phase 5: witness commit, then prove) and the 9-stage SNARK at the
-find_min shape (phase 8), each under its fixed tape, with every K2 launch
-timed by CUDA events (chip_smoke.K2Trace). Prints one JSON line: the card,
-the tree, each prove's seconds, its K2 launches and ms, and K2's ms inside
-the witness commits (NIZK `witness_commit`, config 4's commit, find_min
-`input_commit`). Run two trees in turns (A, B, B, A) in one session on one
-card to compare them; the helpers come from this checkout's chip_smoke.py.
-Needs a CUDA card; imports nothing of JAX.
+(phase 5: witness commit, then prove with device-resident rounds, then the
+same tape with the host round loop) and the 9-stage SNARK at the find_min
+shape (phase 8), each under its fixed tape, with every kernel launch timed
+by CUDA events (chip_smoke.kernel_trace). Every prove here is traced, in
+both trees and both forms alike, so its seconds carry the events' cost
+and compare only with each other (chip_smoke.py's `prove_s` are
+untraced). Prints one JSON line: the card, the tree, each prove's
+seconds, K2's, K11's and fold_points' launches and ms inside the prove
+and every kernel's (`by_kernel`, summed over its launches; K2 also inside
+the witness commits: NIZK `witness_commit`, config 4's commit, find_min
+`input_commit`), config 4's phase-1 sumcheck seconds in both forms, each
+proof's sha256, and K2's bullet rows alone (1 x 514 ... 1 x 34, 50
+launches each: chip_smoke.py phase 2 times them too, but in one tree a
+call, and a comparison of two trees needs both on one card in one call).
+Run two trees in turns (A, B, B, A) back to back on one card to compare
+them; the helpers come from this checkout's chip_smoke.py. Needs a CUDA
+card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -58,44 +69,66 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     h = hashlib.sha256()
-    for f in ("msm.cu", "msm.cuh"):
-        path = os.path.join(root, "spartan_parallel_tpu_torch", "csrc", f)
-        if os.path.exists(path):
-            with open(path, "rb") as fh:
+    csrc = os.path.join(root, "spartan_parallel_tpu_torch", "csrc")
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith((".cu", ".cuh")):
+            with open(os.path.join(csrc, f), "rb") as fh:
                 h.update(fh.read())
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    out = {"card": card, "root": root, "msm_source_sha256": h.hexdigest()[:16],
+    out = {"card": card, "root": root,
+           "kernel_source_sha256": h.hexdigest()[:16],
            "build_s": build_s}
-    with cs.k2_trace() as k2:
+    with cs.kernel_trace() as tr:
         run = cs.nizk_run(20, 10, dev, seed_tape=True)
     out["nizk"] = {"prove_s": run["prove_s"],
                    "witness_commit_s": run["stages"]["witness_commit"],
-                   "k2_witness_commit": k2.summary("witness_commit"),
-                   "k2_prove": k2.summary("NIZK::prove"),
+                   **cs.traced(tr, (("witness_commit", "witness_commit"),
+                                    ("prove", "NIZK::prove"))),
                    "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest()}
     del run
-    with cs.k2_trace() as k2:
-        run = cs.dp_run([512, 128, 32, 32], 10, 10, dev, seed_tape=True)
-    out["dp_skewed"] = {"commit_s": run["commit_s"],
-                        "prove_s": run["prove_s"],
-                        "k2_witness_commit": k2.summary("witness_commit"),
-                        "k2_prove": k2.summary("R1CSProof::prove"),
-                        "proof_sha256": hashlib.sha256(
-                            run["bytes"]).hexdigest()}
-    del run
+    skewed = [512, 128, 32, 32]
+    with cs.kernel_trace() as tr:
+        run = cs.dp_run(skewed, 10, 10, dev, seed_tape=True)
+    with cs.host_loop(), cs.kernel_trace() as tr_host:
+        base = cs.dp_run(skewed, 10, 10, dev, seed_tape=True)
+    out["dp_skewed"] = {
+        "commit_s": run["commit_s"], "prove_s": run["prove_s"],
+        "prove_sc_phase_one_s": run["stages_s"]["prove_sc_phase_one"],
+        **cs.traced(tr, (("witness_commit", "witness_commit"),
+                         ("prove", "R1CSProof::prove"))),
+        "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest(),
+        "host_loop": {
+            "prove_s": base["prove_s"],
+            "prove_sc_phase_one_s": base["stages_s"]["prove_sc_phase_one"],
+            **cs.traced(tr_host, (("prove", "R1CSProof::prove"),)),
+            "proof_sha256": hashlib.sha256(base["bytes"]).hexdigest()}}
+    del run, base
     zk_args, zk_pa = ex.build_synthetic_zkvm(
         num_blocks=9, block_cons=8192, num_execs=cs.FINDMIN_EXECS)
-    with cs.k2_trace() as k2:
+    with cs.kernel_trace() as tr:
         run = cs.zkvm_run(zk_args, zk_pa, dev, b"\x0f" * 32)
     out["findmin"] = {"prove_s": run["prove_s"],
                       "input_commit_s": run["stages_s"]["input_commit"],
-                      "k2_input_commit": k2.summary("input_commit"),
-                      "k2_prove": k2.summary("SNARK::prove"),
+                      **cs.traced(tr, (("input_commit", "input_commit"),
+                                       ("prove", "SNARK::prove"))),
                       "proof_sha256": hashlib.sha256(
                           run["bytes"]).hexdigest()}
+    del run
+    # K2's bullet rows alone, at chip_smoke.py phase 2's shapes and points
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.ops import msm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    pts = MultiCommitGens(1024, b"chip_smoke").device_points(dev)
+    out["k2_bullet_rows_ms"] = {}
+    for n in (514, 258, 130, 66, 34):
+        sc = cs.rand_field((1, n), gen, dev)
+        out["k2_bullet_rows_ms"][n] = cs.cuda_ms(
+            lambda: msm.msm_dev(pts[:n], sc), 50)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -51,8 +51,15 @@
 // in registers, 8 products) and 5 additions; each step's products run one
 // after another.
 //
-//   fold_points: one thread per point pair computes k_l * L_i + k_r * R_i
-//     by a joint double-and-add over the 253 bits of the shared scalars.
+//   fold_points (k_fold): k_l * L_i + k_r * R_i by a joint double-and-add
+//     over the shared scalars from their top set bit, with L, R and L + R
+//     in cached form. A chain of doublings and additions whatever the
+//     pair count, so each point operation's independent products run on
+//     four lanes (csrc/lanes.cuh: two products deep a doubling or an
+//     addition, against 8 and 9 on one thread) on the chains' product
+//     (csrc/fe.cuh), and one-warp blocks of eight pairs spread 512 pairs
+//     over 64 SMs. Dependent products: 4 to form the cached addends, then
+//     2 a bit below the top and 2 a bit set in k_l | k_r.
 //   point_sum (K12): one thread per column b sums D points (D, B) -> (B)
 //     by the halving tree of ops/curve.py tree_sum (identity-padded, the
 //     same pairs in the same order, so the coordinates equal the plain
@@ -70,6 +77,7 @@
 // fill the card.
 #include <cuda_runtime.h>
 
+#include "lanes.cuh"
 #include "msm.cuh"
 
 #define TILE 2048       // most points of one warp's chunk
@@ -360,32 +368,38 @@ __global__ void __launch_bounds__(32, 16)
 }
 
 // out[i] = k_l * L[i] + k_r * R[i]; k holds k_l then k_r as 16-bit limbs.
-__global__ void k_fold(const int32_t* __restrict__ L,
-                       const int32_t* __restrict__ R,
-                       const int32_t* __restrict__ k,
-                       int32_t* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t kl[8], kr[8];
-  load16(k, kl);
-  load16(k + 16, kr);
-  Point pl, pr, plr, acc;
-  pt_load(pl, L + 64 * i);
-  pt_load(pr, R + 64 * i);
-  pt_add(plr, pl, pr);
-  pt_identity(acc);
-  for (int bit = 252; bit >= 0; --bit) {
-    pt_double(acc, acc);
-    const uint32_t bl = (kl[bit >> 5] >> (bit & 31)) & 1u;
-    const uint32_t br = (kr[bit >> 5] >> (bit & 31)) & 1u;
-    if (bl && br)
-      pt_add(acc, acc, plr);
-    else if (bl)
-      pt_add(acc, acc, pl);
-    else if (br)
-      pt_add(acc, acc, pr);
+// One warp a block, eight pairs a warp, a pair's point on four lanes
+// (csrc/lanes.cuh): lane c of group p holds coordinate c of pair p's
+// accumulator and component c of its three cached addends.
+__global__ void __launch_bounds__(32)
+    k_fold(const int32_t* __restrict__ L, const int32_t* __restrict__ R,
+           const int32_t* __restrict__ k, int32_t* __restrict__ out,
+           long long n) {
+  const int lane = threadIdx.x, c = lane & 3, base = lane & ~3;
+  const long long i0 = blockIdx.x * 8LL + (lane >> 2);
+  const long long i = i0 < n ? i0 : n - 1;  // idle groups repeat a pair
+  __shared__ uint32_t ks[16];  // k_l, k_r words (indexed by the bit)
+  if (lane < 16)
+    ks[lane] = (uint32_t)k[2 * lane] | ((uint32_t)k[2 * lane + 1] << 16);
+  __syncwarp();
+  const uint32_t *kl = ks, *kr = ks + 8;
+  const Fe l = fe_load16(L + 64 * i + 16 * c);
+  const Fe r = fe_load16(R + 64 * i + 16 * c);
+  const Fe cr = q_cached(r, c, base);
+  Fe lr = l;
+  q_add_cached(lr, cr, c, base);
+  const Fe cl = q_cached(l, c, base), clr = q_cached(lr, c, base);
+  const int top = fold_top(kl, kr);
+  Fe acc = fold_pick(fold_bits(kl, kr, top), c, l, r, lr);
+#pragma unroll 1
+  for (int bit = top - 1; bit >= 0; --bit) {
+    q_double(acc, c, base);
+    const int sel = fold_bits(kl, kr, bit);  // the same on every lane
+    if (sel)
+      q_add_cached(acc, fe_select(sel == 3, clr, fe_select(sel == 1, cl, cr)),
+                   c, base);
   }
-  pt_store(out + 64 * i, acc);
+  if (i0 < n) fe_store16(out + 64 * i0 + 16 * c, acc);
 }
 
 // out[b] = sum_d in[d, b], the halving tree of tree_sum; scratch holds
@@ -477,7 +491,7 @@ int msm_window_occupancy(int* blocks) {
 int fold_points_launch(const int32_t* L, const int32_t* R, const int32_t* k,
                        int32_t* out, long long n, void* stream) {
   if (n > 0)
-    k_fold<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+    k_fold<<<(unsigned)((n + 7) / 8), 32, 0, (cudaStream_t)stream>>>(
         L, R, k, out, n);
   return (int)cudaGetLastError();
 }

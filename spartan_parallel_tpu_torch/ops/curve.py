@@ -9,8 +9,9 @@ ristretto compression.
 
 `fold_points` launches csrc/msm.cu's fold kernel on a CUDA tensor and takes
 `fold_points_plain` on a CPU tensor. It replaces ops/curve.py
-_fold_scan; bound on the card by operations (a 253-bit joint
-double-and-add per pair), see csrc/msm.cu. `point_sum` (K12, the sum of
+_fold_scan; bound on the card by operations (a joint double-and-add over
+the shared scalars per pair, its point operations split over four lanes),
+see csrc/msm.cu. `point_sum` (K12, the sum of
 the sharded MSM's per-rank partials; replaces ops/curve.py tree_reduce)
 and `scale_points` (K13, k * P; replaces ops/curve.py _scale_scan /
 scale_points) launch msm.cu's kernels the same way, with `tree_sum` and

@@ -2,8 +2,9 @@
 
 Each source compiles with nvcc into its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
-build/kernels/ at the repository root, named by a hash of the sources it
-includes. The wrappers in ops/ pass raw device pointers and PyTorch's
+build/kernels/ at the repository root, named by a hash of the source and
+the headers it includes (`_includes`), so an edit to a header rebuilds
+only the libraries that include it. The wrappers in ops/ pass raw device pointers and PyTorch's
 current stream as ctypes.c_void_p; every C entry returns
 cudaGetLastError() and `launch` raises when it is not 0.
 
@@ -15,7 +16,9 @@ take the plain PyTorch versions and are not counted.
 
 K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
 Keccak permutation, ristretto compression, comb commitments and the round
-tail. K12 (point_sum) and K13 (scale_points) sit in msm.cu.
+tail. K12 (point_sum) and K13 (scale_points) sit in msm.cu. fp_chain.cu
+holds a measurement kernel on no path, not in SOURCES: chip_smoke.py
+phase 2 `fp_chain` builds and calls it directly, uncounted.
 
 `build` writes each library under a temporary name and renames it, so
 processes that build at once (the ranks of a mesh) never load a partial
@@ -27,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -35,8 +39,6 @@ import torch
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
 BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
-_HEADERS = ("limbs.cuh", "fq.cuh", "fp.cuh", "curve.cuh", "msm.cuh",
-            "reduce.cuh", "keccak.cuh", "ristretto.cuh", "zk_round.cuh")
 SOURCES = ("fq", "msm", "spmv", "sumcheck", "product", "uni", "zk_round")
 
 _P = ctypes.c_void_p
@@ -73,6 +75,7 @@ _ENTRIES = {
     "comb_launch": ("zk_round", [_P, _I32, _P, _P, _I64, _P]),
     "zk_round_tail_launch": ("zk_round", [_P, _I32, _P, _P, _P, _P, _P,
                                           _I32, _P, _P]),
+    "fp_chain_launch": ("fp_chain", [_I32, _P, _P, _P, _I32, _P]),
 }
 
 launches: dict = {}
@@ -99,9 +102,22 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def _includes(src: str) -> list:
+    """The csrc headers `src` includes, directly or through another
+    header, sorted."""
+    seen, todo = set(), [src]
+    while todo:
+        with open(os.path.join(_CSRC, todo.pop()), encoding="utf-8") as fh:
+            for h in re.findall(r'^#include "([^"]+)"', fh.read(), re.M):
+                if h not in seen:
+                    seen.add(h)
+                    todo.append(h)
+    return sorted(seen)
+
+
 def _so_path(name: str) -> str:
     h = hashlib.sha256()
-    for f in (name + ".cu",) + _HEADERS:
+    for f in [name + ".cu"] + _includes(name + ".cu"):
         with open(os.path.join(_CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")

@@ -17,8 +17,9 @@ commitments on the card too.
   ops/curve.py tree_sum).
 
 The plain versions here serve the CPU and the plain round tail; the
-kernels are csrc/zk_round.cu on csrc/ristretto.cuh. Both bound by
-operations, see there.
+kernels are csrc/zk_round.cu on csrc/ristretto.cuh: K9 encodes a point on
+a group of ten lanes (csrc/fp10.cuh), K10 sums a window on a group of
+four (csrc/lanes.cuh). Both bound by operations, see there.
 """
 
 from __future__ import annotations

@@ -13,9 +13,9 @@ state, then `pos` and `pos_begin`. On the card the state lives inside K11
 (st, pos, pos_begin) with st an int64 tensor of byte values and the two
 positions Python ints, and serve the plain round tail and the CPU tests.
 
-`permute` launches K8 on a CUDA tensor (a batch of states, one thread
-each; the kernel-level check of the permutation K11 runs) and takes
-`permute_plain` on a CPU tensor. Replaces transcript_dev.py _f1600 and
+`permute` launches K8 on a CUDA tensor (a batch of states, a warp each,
+25 lanes a state: the kernel-level check of the permutation K11 runs) and
+takes `permute_plain` on a CPU tensor. Replaces transcript_dev.py _f1600 and
 permute; bound by operations, see csrc/zk_round.cu.
 """
 

@@ -142,8 +142,9 @@ def zk_round_tail_plain(evs, st, carry, tape, out, tab_n, tab_1) -> None:
 
 
 def zk_round_tail(evs, st, carry, tape, out, tab_n, tab_1) -> None:
-    """One round's tail: K11 on CUDA tensors (one block), the plain
-    version on CPU tensors. Updates st, carry and out in place."""
+    """One round's tail: K11 on CUDA tensors (one block of 256 threads),
+    the plain version on CPU tensors. Updates st, carry and out in
+    place."""
     evs = evs.reshape(-1, 3, 16)
     if tab_n.shape[0] != 5 or tab_1.shape[0] != 2:
         raise ValueError("the round tail commits with 4 G + h and G + h")

@@ -375,6 +375,61 @@ def test_zk_round_kernels(dev):
     assert torch.equal(out[0], out[1])
 
 
+@pytest.mark.parametrize("pairs", [1, 8, 33, 512])
+def test_fold_kernel(dev, pairs):
+    """fold_points (k_fold: eight pairs a warp, a point on four lanes)
+    against fold_points_plain at 1, 8, 33 and 512 pairs (idle groups in
+    the last warp), with the scalars 0, 1, l - 1 and random ones, as group
+    elements."""
+    from spartan_parallel_tpu_torch.core.edwards import RistrettoPoint
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+
+    pts = MultiCommitGens(2 * pairs, b"gpu_fold").device_points(dev)
+    pl, pr = pts[:pairs], pts[pairs:2 * pairs]
+    kr = fq.decode(rand_field((2,), dev, pairs).cpu())
+    for k_l, k_r in ((0, 0), (0, 1), (1, L - 1), (L - 1, L - 1),
+                     (kr[0], kr[1])):
+        got = curve.fold_points(pl, pr, k_l, k_r)
+        want = curve.fold_points_plain(pl, pr,
+                                       curve.scalar_limbs([k_l, k_r], dev))
+        assert [p.compress() for p in curve.decode_points(got)] == \
+            [p.compress() for p in curve.decode_points(want)]
+        if k_l == k_r == 0:
+            ident = RistrettoPoint.identity().compress()
+            assert all(p.compress() == ident
+                       for p in curve.decode_points(got))
+
+
+def test_zk_round_tail_two_rounds(dev):
+    """Two consecutive K11 rounds (the second reads the first's transcript
+    state and carry) against zk_round_tail_plain: state, carry and out,
+    byte for byte after each round."""
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.ops import transcript_dev as tdev
+    from spartan_parallel_tpu_torch.ops import zk_round as zkr
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    tab_n = MultiCommitGens(4, b"gpu_zk2").comb_tables(dev)
+    tab_1 = MultiCommitGens(1, b"gpu_zk2").comb_tables(dev)
+    carry = torch.cat([rand_field((1,), dev, 20), rand_field((2,), dev, 21)
+                       & 0xFF])
+    bufs = {}
+    for fn in (zkr.zk_round_tail, zkr.zk_round_tail_plain):
+        bufs[fn] = [tdev.from_host(Transcript(b"gpu_zk2"), dev),
+                    carry.clone(),
+                    torch.zeros((zkr.OUT_ROWS, 16), dtype=torch.int32,
+                                device=dev)]
+    for rnd in range(2):
+        tape = torch.cat([rand_field((9,), dev, 22 + rnd),
+                          rand_field((2,), dev, 24 + rnd) & 0xFF])
+        evs = rand_field((1, 3), dev, 26 + rnd)
+        for fn, b in bufs.items():
+            fn(evs, b[0], b[1], tape, b[2], tab_n, tab_1)
+        card, plain = bufs.values()
+        for x, y in zip(card, plain):
+            assert torch.equal(x, y), f"round {rnd}"
+
+
 @pytest.mark.parametrize("num_proofs", [[8, 2, 1], [2, 2, 2, 2]])
 def test_device_rounds_match_host_loop(dev, monkeypatch, num_proofs):
     """The data-parallel R1CSProof at 16 x 16 x 4 on the card: the

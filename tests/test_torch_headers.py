@@ -1,11 +1,13 @@
-"""The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh,
+"""The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh, fe.cuh,
 curve.cuh), K2's signed digits, cached points and bucket combination
-(csrc/msm.cuh, host_check.cpp), and the device round's
-transcript, encoding, comb commitment and tail (csrc/keccak.cuh,
-ristretto.cuh, zk_round.cuh) built for the host with g++
-(csrc/host_check.cpp) and held against the port's plain PyTorch versions
-and host oracles on random and edge inputs. Only the launch code of the
-kernels stays unchecked on a host without a card."""
+(csrc/msm.cuh, host_check.cpp), the lane-split point operations and the
+fold (csrc/lanes.cuh), and the device round's transcript, encoding, comb
+commitment and tail (csrc/keccak.cuh, ristretto.cuh, zk_round.cuh) built
+for the host with g++ (csrc/host_check.cpp) and held against Python
+integers, the port's plain PyTorch versions and host oracles on random and
+edge inputs. Code that runs on several lanes runs here through its host
+model: the kernels' own step functions, lane by lane. Only the launch code
+of the kernels stays unchecked on a host without a card."""
 
 import ctypes
 import os
@@ -48,18 +50,22 @@ def lib(tmp_path_factory):
     lib.host_fq_bind.argtypes = [vp, vp, vp, vp, n]
     lib.host_fq_pow.argtypes = [vp, vp, vp, n]
     lib.host_fp_mul.argtypes = [vp, vp, vp, n]
+    lib.host_fe_mul.argtypes = [vp, vp, vp, vp, n, ctypes.c_int]
+    lib.host_fe_words.argtypes = [vp, vp, vp, vp, n]
+    lib.host_ls_point.argtypes = [vp, vp, vp, n, ctypes.c_int]
+    lib.host_fold.argtypes = [vp, vp, vp, vp, n]
     lib.host_pt_add.argtypes = [vp, vp, vp, n]
     lib.host_pt_double.argtypes = [vp, vp, n]
     lib.host_signed_digits.argtypes = [vp, vp, vp, n]
     lib.host_pt_add_cached.argtypes = [vp, vp, vp, vp, n]
     lib.host_bucket_combine.argtypes = [vp, n, vp]
-    lib.host_keccak.argtypes = [vp, vp, n]
+    lib.host_keccak.argtypes = [vp, vp, n, ctypes.c_int]
     lib.host_strobe_op.argtypes = [vp, ctypes.c_int, vp, vp, n,
                                    ctypes.c_int]
     lib.host_challenge_scalar.argtypes = [vp, ctypes.c_char_p, vp]
     lib.host_from_bytes_wide.argtypes = [vp, vp, n]
     lib.host_compress.argtypes = [vp, vp, n]
-    lib.host_comb.argtypes = [vp, n, vp, vp, n]
+    lib.host_comb.argtypes = [vp, n, vp, vp, n, n]
     lib.host_zk_round_tail.argtypes = [vp, n, vp, vp, vp, vp, vp, vp]
     return lib
 
@@ -111,6 +117,127 @@ def test_fp_mul(lib):
     lib.host_fp_mul(ptr(a), ptr(b), ptr(out), n)
     assert np.array_equal(out, fp.mul(torch.from_numpy(a),
                                       torch.from_numpy(b)).numpy())
+
+
+FE_W = [26, 25] * 5
+FE_OFF = [(51 * i + 1) >> 1 for i in range(10)]
+
+
+def fe_value(limbs):
+    return sum(int(v) << o for v, o in zip(limbs, FE_OFF))
+
+
+def fe_limbs(x):
+    """A value below 2^255 as fe.cuh's tight limbs."""
+    return [(x >> o) & ((1 << w) - 1) for o, w in zip(FE_OFF, FE_W)]
+
+
+def words_int(w):
+    return sum(int(v) << (32 * k) for k, v in enumerate(w))
+
+
+FE_EDGES = [0, 1, P - 1, P, P + 1, (1 << 255) - 20, (1 << 255) - 1,
+            (1 << 256) - 1, (1 << 256) - 38]
+
+
+@pytest.mark.parametrize("kind", [0, 1, 2, 3],
+                         ids=["mul", "sqr", "lanes_mul", "lanes_sqr"])
+def test_fe_product(lib, kind):
+    """The chains' products against Python integers, out fully reduced:
+    csrc/fe.cuh fe_mul and fe_sqr on one thread, and the ten-lane product
+    and squaring of the ENCODE (csrc/fp10.cuh, each lane's steps run lane
+    by lane by G10Host), whose limbs must also stay within the bounds the
+    next product takes (2^W + 2^18.2, limb 0 2^26 + 2^22.5). Inputs:
+    seeded random values, the edges 0, 1, p - 1, 2^255 - 20 and their
+    neighbours as tight limbs, and every limb at the product's input
+    bounds (the first operand below 2^(W + 3), the second and a squaring's
+    below 3.36 * 2^W), alone and all at once."""
+    sq = kind in (1, 3)
+    fmax = [(1 << (w + 3)) - 1 for w in FE_W]
+    gmax = [int(3.36 * (1 << w)) for w in FE_W]
+    vals = [x % P for x in FE_EDGES] + rand_mod(P, 24)
+    f = [fe_limbs(x) for x in vals] + [fmax, gmax, [0] * 10]
+    g = [fe_limbs(x) for x in vals[::-1]] + [gmax, gmax, gmax]
+    for i in range(10):  # limb i at its bound, the rest random
+        f.append([fmax[k] if k == i else int(rng.integers(fmax[k]))
+                  for k in range(10)])
+        g.append([gmax[k] if k == i else int(rng.integers(gmax[k]))
+                  for k in range(10)])
+    if sq:
+        f = g
+    a = np.array(f, dtype=np.uint32)
+    b = np.array(g, dtype=np.uint32)
+    out = np.zeros((len(f), 8), dtype=np.uint32)
+    limbs = np.zeros((len(f), 10), dtype=np.uint32)
+    lib.host_fe_mul(ptr(a), ptr(b), ptr(out), ptr(limbs), len(f), kind)
+    assert [words_int(w) for w in out] == \
+        [fe_value(x) * fe_value(y) % P for x, y in zip(f, g)]
+    if kind >= 2:
+        bound = [(1 << w) + int(2 ** 18.2) for w in FE_W]
+        bound[0] = (1 << 26) + int(2 ** 22.5)
+        assert (limbs < np.array(bound)).all()
+
+
+def test_fe_words(lib):
+    """fe_from_words on any 256-bit value (tight limbs, bit 255 folded as
+    19) and fe_to_words back, fully reduced: the edges and random words;
+    the ten lanes' own limb loads (fp10_limb) give the same limbs."""
+    vals = FE_EDGES + [int.from_bytes(rng.bytes(32), "little")
+                       for _ in range(32)]
+    w = np.array([[(x >> (32 * k)) & 0xFFFFFFFF for k in range(8)]
+                  for x in vals], dtype=np.uint32)
+    out = np.zeros_like(w)
+    limbs = np.zeros((len(vals), 10), dtype=np.uint32)
+    lane_limbs = np.zeros_like(limbs)
+    lib.host_fe_words(ptr(w), ptr(out), ptr(limbs), ptr(lane_limbs),
+                      len(vals))
+    assert [words_int(o) for o in out] == [x % P for x in vals]
+    assert np.array_equal(lane_limbs, limbs)
+    bound = np.array([(1 << w) + (1 << 18) for w in FE_W])
+    assert (limbs < bound).all()
+
+
+@pytest.mark.parametrize("op", [0, 1, 2], ids=["add", "double",
+                                               "add_cached"])
+def test_lane_point_ops(lib, op):
+    """The lane-split point operations (csrc/lanes.cuh: a point's four
+    coordinates on four lanes, each step run lane by lane by the host
+    model) against curve.cuh's pt_add and pt_double and the plain
+    versions, coordinate for coordinate: the same field values."""
+    B0 = RistrettoPoint.basepoint()
+    pts = [B0.scalar_mul(x) for x in rand_mod(L, 8)] + \
+        [RistrettoPoint.identity()]
+    p = curve.encode_points(pts)
+    q = curve.encode_points(pts[::-1])
+    got = np.zeros_like(p)
+    want = np.zeros_like(p)
+    lib.host_ls_point(ptr(p), ptr(q), ptr(got), len(pts), op)
+    if op == 1:
+        lib.host_pt_double(ptr(p), ptr(want), len(pts))
+    else:
+        lib.host_pt_add(ptr(p), ptr(q), ptr(want), len(pts))
+    assert np.array_equal(got, want)
+    plain = curve.point_double(torch.from_numpy(p)) if op == 1 else \
+        curve.point_add(torch.from_numpy(p), torch.from_numpy(q))
+    assert np.array_equal(got, plain.numpy())
+
+
+@pytest.mark.parametrize("ks", [(0, 1), (1, L - 1), (L - 1, 0), None],
+                         ids=["0_1", "1_lm1", "lm1_0", "random"])
+def test_fold_host_model(lib, ks):
+    """k_fold's host model (csrc/host_check.cpp host_fold: the kernel's
+    joint double-and-add from the top set bit on the lane-split
+    operations) against the plain fold, as group elements."""
+    k_l, k_r = ks if ks else rand_mod(L, 7)[5:]
+    B0 = RistrettoPoint.basepoint()
+    pl = curve.encode_points([B0.scalar_mul(x) for x in rand_mod(L, 8)[3:]])
+    pr = curve.encode_points([B0.scalar_mul(x) for x in rand_mod(L, 8)[3:]])
+    k = np.ascontiguousarray(curve.scalar_limbs([k_l, k_r], "cpu").numpy())
+    got = np.zeros_like(pl)
+    lib.host_fold(ptr(pl), ptr(pr), ptr(k), ptr(got), len(pl))
+    want = curve.fold_points_plain(torch.from_numpy(pl),
+                                   torch.from_numpy(pr), torch.from_numpy(k))
+    assert compressed(got) == compressed(want.numpy())
 
 
 def test_point_add_and_double(lib):
@@ -199,7 +326,7 @@ def test_keccak_and_strobe(lib):
     transcript, state and outputs after every step."""
     st = rng.integers(0, 256, (4, 200)).astype(np.int32)
     out = np.zeros_like(st)
-    lib.host_keccak(ptr(st), ptr(out), 4)
+    lib.host_keccak(ptr(st), ptr(out), 4, 0)
     assert np.array_equal(out, tdev.permute(torch.from_numpy(st)).numpy())
     lanes = [int.from_bytes(st[0, 8 * i:8 * i + 8].astype(np.uint8)
                             .tobytes(), "little") for i in range(25)]
@@ -229,6 +356,20 @@ def test_keccak_and_strobe(lib):
     lib.host_challenge_scalar(ptr(io), b"probe", ptr(c))
     assert fq.decode(c) == [int(t.challenge_scalar(b"probe"))]
     assert np.array_equal(io, tdev.host_state(t))
+
+
+def test_keccak_lanes(lib):
+    """The lane Keccak (csrc/keccak.cuh kl_* steps, one 64-bit word a lane,
+    run lane by lane by keccak_lanes_host) against keccak_f1600 and the
+    plain permutation, on random states and the all-zero state."""
+    st = rng.integers(0, 256, (6, 200)).astype(np.int32)
+    st[0] = 0
+    got = np.zeros_like(st)
+    ref = np.zeros_like(st)
+    lib.host_keccak(ptr(st), ptr(got), len(st), 1)
+    lib.host_keccak(ptr(st), ptr(ref), len(st), 0)
+    assert np.array_equal(got, ref)
+    assert np.array_equal(got, tdev.permute(torch.from_numpy(st)).numpy())
 
 
 def test_from_bytes_wide(lib):
@@ -261,9 +402,13 @@ def test_compress_and_comb(lib):
     sm = fq.encode(rand_mod(L, 10)).reshape(2, 5, 16)
     sm[1, 2] = 0
     got = np.zeros((2, 4, 16), dtype=np.int32)
-    lib.host_comb(ptr(tab), 5, ptr(sm), ptr(got), 2)
+    lib.host_comb(ptr(tab), 5, ptr(sm), ptr(got), 2, 64)
     want = rdev.comb_commit(torch.from_numpy(tab), torch.from_numpy(sm))
     assert np.array_equal(got, want.numpy())
+    # K11's Cy / beta layout (32 groups, two windows each): the same
+    # points in another order of additions
+    lib.host_comb(ptr(tab), 5, ptr(sm), ptr(got), 2, 32)
+    assert compressed(got) == compressed(want.numpy())
 
 
 def test_round_tail(lib):

@@ -1,10 +1,11 @@
 """The port's host layer (its own copies of the framework-free modules):
-merlin, RFC 9496 and tdefl vectors, the import boundary and the device
-rule."""
+merlin, RFC 9496 and tdefl vectors, the import boundary, the device rule
+and the kernel libraries' build names."""
 
 import hashlib
 import os
 import random
+import shutil
 import subprocess
 import sys
 import zlib
@@ -62,6 +63,36 @@ def test_native_library_is_the_ports_own():
     assert all(os.path.dirname(s).endswith(
         os.path.join("spartan_parallel_tpu_torch", "native"))
         for s in native._SRCS)
+
+
+# the libraries an edit to each header must rename: those whose source
+# includes it, directly or through another header
+HEADER_USERS = {
+    "fe.cuh": {"msm", "zk_round", "fp_chain"},
+    "fq.cuh": {"fq", "spmv", "sumcheck", "product", "uni", "zk_round",
+               "fp_chain"},
+    "zk_round.cuh": {"zk_round"},
+}
+
+
+@pytest.mark.parametrize("header", sorted(HEADER_USERS))
+def test_kernel_build_name_follows_its_headers(tmp_path, monkeypatch,
+                                               header):
+    """A kernel library's build name hashes its source and the headers it
+    includes: an edit to a header renames exactly the libraries that
+    include it, so they and no others are rebuilt."""
+    from spartan_parallel_tpu_torch.ops import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(os.path.join(ROOT, "spartan_parallel_tpu_torch", "csrc"),
+                    csrc)
+    monkeypatch.setattr(kernels, "_CSRC", str(csrc))
+    names = kernels.SOURCES + ("fp_chain",)
+    before = {n: kernels._so_path(n) for n in names}
+    with open(csrc / header, "a") as fh:
+        fh.write("\n// edited\n")
+    assert {n for n in names
+            if kernels._so_path(n) != before[n]} == HEADER_USERS[header]
 
 
 def test_tdefl_golden_vectors():
