@@ -12,7 +12,10 @@ Phases, each printing one JSON line:
      shapes its path gives it (exact equality; points after ristretto
      compression), with the kernel's time, the plain version's time and
      the least time the card could take (bound_ms): the NIZK's kernels at
-     2^20, and the data-parallel proof's (K4's x, q, w and p rounds, K5's
+     2^20 (K1's eq table, one launch a call, also at 2^10 and 2^14; K4's
+     fused rounds, and K4 across a whole 2^20 sumcheck of each phase:
+     `sc_p1_rounds`, `sc_p2_rounds`), and the data-parallel proof's (K4's
+     x, q, w and p rounds, K5's
      class rounds, eq_fold, pc_bind, the ABC combination) at the shapes of
      the runs of phases 5 and 6, and SPARK's (K6's product-tree layer and
      cubic rounds, the pt_fold bind, the hash layer) at the shapes of the
@@ -68,14 +71,18 @@ bytes) and, after phase 8, find_min's largest block commit (its shape
 read from that run), each with its bound from the redesign's operations
 and the first design's beside it; a line before phase 2 gives msm.cu's
 ptxas registers, spills and shared memory and the window kernel's blocks
-an SM, and `ptxas_zk` the same for K8-K11 and k_fold with the stack
+an SM, `ptxas_zk` the same for K8-K11 and k_fold with the stack
 frames of the functions they call (K11 may keep at most K11_STACK_MAX
-bytes). Phases 4, 5 and 8 time their proves untraced, then prove the
-same tape once more under kernel_trace, whose CUDA events time every
-launch: the lines give that run's prove seconds (`traced_prove_s`, the
-events' cost beside `prove_s`), K2's, K11's and fold_points' launches and
-ms inside its witness commits and proves (`k2`, `k11`, `fold`), and every
-kernel's, summed over its launches (`by_kernel`).
+bytes), and `ptxas_k4` for K4's twelve instances and K1's eq kernel.
+Phases 4, 5, 6 and 8 time their proves untraced, then prove the same
+tape once more under kernel_trace, whose CUDA events time every launch:
+the lines give that run's prove seconds (`traced_prove_s`, the events'
+cost beside `prove_s`), K2's, K11's and fold_points' launches and ms
+inside its witness commits and proves (`k2`, `k11`, `fold`), every
+kernel's, summed over its launches (`by_kernel`), and every caller's
+(`by_caller`: a launch under the counter its wrapper counted it under
+too, K1's eq_fold, pc_bind, pt_fold, hash_poly, rlc_eval, abc_comb, or
+else under the first function outside ops/ that made it).
 Phase 2 starts with `fp_chain`: csrc/fp_chain.cu runs a 4096-step
 dependent chain of field products on one warp for fp.cuh's product as
 K9-K11 called it, inlined, fe.cuh's product and squaring, fp10.cuh's
@@ -335,7 +342,15 @@ def ptxas_kernels(log: str) -> dict:
 
     def short(name):
         z = re.match(r"_Z(\d+)", name)  # a C++ name: _Z<len><name>...
-        return name[z.end():z.end() + int(z.group(1))] if z else name
+        if not z:
+            return name
+        base = name[z.end():z.end() + int(z.group(1))]
+        # template arguments: I L<type><value>E ... E
+        t = re.match(r"I((?:L[a-z]+\d+E)+)E", name[z.end() + int(z.group(1)):])
+        if t:
+            base += "<" + ",".join(re.findall(r"L[a-z]+(\d+)E",
+                                              t.group(1))) + ">"
+        return base
 
     entry = None
     for ln in log.splitlines():
@@ -379,11 +394,16 @@ class KernelTrace:
     """Every kernel launch (ops/kernels.py launch, by its counter), timed
     by CUDA events, with the stage Timers (utils/timer.py) open around it;
     K2's (rows, points), K11's table sets and fold_points' pairs as its
-    shape. The events cost each launch two records on the stream: time
-    the path in a run without a trace."""
+    shape; and its caller: the counter its wrapper counted it under too
+    (K1's callers eq_fold, pc_bind, pt_fold, hash_poly, rlc_eval,
+    abc_comb, ...: the `counter=` of ops/fq.py) or, with none, the first
+    function outside ops/ on the stack ("@file:function"). The events
+    cost each launch two records on the stream: time the path in a run
+    without a trace."""
 
     def __init__(self):
         self.launches, self.open = [], []
+        self.in_launch = False
 
     def summary(self, stage=None, kernel="k2") -> dict:
         """Launches, ms and ms by shape of `kernel`'s launches under
@@ -419,6 +439,23 @@ class KernelTrace:
                                      t + c["ev"][0].elapsed_time(c["ev"][1]))
         return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
 
+    def by_caller(self, stage=None) -> dict:
+        """{caller: {kernel counter: (launches, ms)}} under `stage`, the
+        callers by most time first: each launch's time under the caller
+        that made it (see the class)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for c in self.launches:
+            if stage is None or stage in c["stages"]:
+                k = out.setdefault(c["caller"] or c["site"], {})
+                n, t = k.get(c["counter"], (0, 0.0))
+                k[c["counter"]] = (n + 1,
+                                   t + c["ev"][0].elapsed_time(c["ev"][1]))
+        return dict(sorted(out.items(),
+                           key=lambda kv: -sum(t for _, t in kv[1].values())))
+
     def largest(self, stage):
         """(rows, points) of the largest K2 launch under `stage`."""
         return max((c["shape"] for c in self.launches
@@ -435,7 +472,8 @@ def kernel_trace():
 
     tr = KernelTrace()
     init, stop = timer.Timer.__init__, timer.Timer.stop
-    launch = kernels.launch
+    launch, count = kernels.launch, kernels.count
+    ops_dir = os.sep + "ops" + os.sep
 
     def traced_init(self, label):
         init(self, label)
@@ -447,29 +485,48 @@ def kernel_trace():
         return stop(self, sync)
 
     def traced_launch(counter, entry, *args):
+        f = sys._getframe(1)
+        while f is not None and ops_dir in f.f_code.co_filename:
+            f = f.f_back
+        site = "@?" if f is None else \
+            f"@{os.path.basename(f.f_code.co_filename)}:{f.f_code.co_name}"
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         ev[0].record()
-        launch(counter, entry, *args)
+        tr.in_launch = True
+        try:
+            launch(counter, entry, *args)
+        finally:
+            tr.in_launch = False
         ev[1].record()
         tr.launches.append({
             "counter": counter, "ev": ev, "stages": tuple(tr.open),
-            "shape": tuple(args[i] for i in SHAPE_ARGS.get(entry, ()))})
+            "shape": tuple(args[i] for i in SHAPE_ARGS.get(entry, ())),
+            "caller": None, "site": site})
+
+    def traced_count(name):
+        # a wrapper's count of its caller follows its launch
+        count(name)
+        if not tr.in_launch and tr.launches and \
+                tr.launches[-1]["caller"] is None:
+            tr.launches[-1]["caller"] = name
 
     timer.Timer.__init__, timer.Timer.stop = traced_init, traced_stop
-    kernels.launch = traced_launch
+    kernels.launch, kernels.count = traced_launch, traced_count
     try:
         yield tr
     finally:
         timer.Timer.__init__, timer.Timer.stop = init, stop
-        kernels.launch = launch
+        kernels.launch, kernels.count = launch, count
 
 
 def traced(tr, stages) -> dict:
-    """K2's, K11's and fold_points' summaries under each (key, stage), and
-    every kernel's launches and ms (`by_kernel`)."""
+    """K2's, K11's and fold_points' summaries under each (key, stage),
+    every kernel's launches and ms (`by_kernel`) and each caller's
+    (`by_caller`)."""
     out = {kernel: {key: tr.summary(stage, kernel) for key, stage in stages}
            for kernel in TRACED}
     out["by_kernel"] = {key: tr.by_kernel(stage) for key, stage in stages}
+    out["by_caller"] = {key: tr.by_caller(stage) for key, stage in stages}
     return out
 
 
@@ -496,7 +553,9 @@ def check_kernels(log_n: int, dev, reps: int):
         """Time one kernel against its plain version. Its launches are
         read later from `counter` (default: its name) in the run of
         `path`. plain_once: the plain version's time is that of the call
-        whose result is compared (for plain versions that take seconds)."""
+        whose result is compared (for plain versions that take seconds).
+        nbytes and imads may be lists, one entry a launch of a sequence:
+        bound_ms is then the sum of the launches' bounds."""
         got = kern()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -506,7 +565,13 @@ def check_kernels(log_n: int, dev, reps: int):
         err = err_fn(got, want)
         ms = cuda_ms(kern, reps_k)
         plain_ms = first_ms if plain_once else wall_ms(plain)
-        b_ms, b_by = bound(nbytes, imads)
+        if isinstance(nbytes, list):
+            parts = [bound(b, o) for b, o in zip(nbytes, imads)]
+            b_ms = sum(t for t, _ in parts)
+            b_by = max(("bytes", "operations"), key=lambda k: sum(
+                t for t, by in parts if by == k))
+        else:
+            b_ms, b_by = bound(nbytes, imads)
         row = {"name": name, "route": "cuda",
                "source": "spartan_parallel_tpu_torch/csrc/" + source,
                "replaces": replaces, "max_abs_err": err, "ms": ms,
@@ -522,14 +587,16 @@ def check_kernels(log_n: int, dev, reps: int):
     a = rand_field((n,), gen, dev)
     b = rand_field((n,), gen, dev)
     r = rand_field((), gen, dev)
-    for name, op, plain, line in (
-            ("fq_mul", fq.mul, fq.mul_plain, 79),
-            ("fq_add", fq.add, fq.add_plain, 83),
-            ("fq_sub", fq.sub, fq.sub_plain, 88)):
+    # fq_sub's launches are read from find_min (SPARK's hash layer): the
+    # NIZK launched it only in the eq tables, which are one kernel now
+    for name, op, plain, line, path in (
+            ("fq_mul", fq.mul, fq.mul_plain, 79, "nizk"),
+            ("fq_add", fq.add, fq.add_plain, 83, "nizk"),
+            ("fq_sub", fq.sub, fq.sub_plain, 88, "findmin")):
         imads = n * IMAD_FQ_MUL if name == "fq_mul" else 0
         record(name, "fq.cu", f"spartan_parallel_tpu/ops/fq.py:{line}",
                lambda op=op: op(a, b), lambda plain=plain: plain(a, b),
-               field_err, 3 * n * E, imads)
+               field_err, 3 * n * E, imads, path=path)
     record("fq_bind", "fq.cu", "spartan_parallel_tpu/ops/sumcheck.py:122",
            lambda: fq.bind(a, r, 0, n // 2),
            lambda: fq.bind_plain(a, r, 0, n // 2), field_err,
@@ -538,15 +605,33 @@ def check_kernels(log_n: int, dev, reps: int):
            lambda: fq.dot(a, b), lambda: fq.dot_plain(a, b), field_err,
            2 * n * E, n * IMAD_FQ_MUL)
 
-    # the eq table of log_n challenges (the NIZK's tau_x and rx tables)
-    from spartan_parallel_tpu_torch.models.dense_mlpoly import eq_evals
+    # the eq table (one K1 launch a call): the NIZK's tau_x and rx tables
+    # at 2^log_n, and 2^10 (its Hyrax openings' factored tables) and 2^14;
+    # bytes: the table written and the challenges read; operations: one
+    # product a doubled entry and the high factors' products
+    from spartan_parallel_tpu_torch.models.dense_mlpoly import (
+        eq_evals, eq_evals_plain,
+    )
+    from spartan_parallel_tpu_torch.ops import kernels
 
-    rs = rand_field((log_n,), gen, dev)
-    half = 1 << (log_n // 2)
-    record("eq_evals", "fq.cu",
-           "spartan_parallel_tpu/models/dense_mlpoly.py:89",
-           lambda: eq_evals(rs, log_n), lambda: eq_evals_plain(rs, log_n),
-           field_err, (n + log_n) * E, (n + 4 * half) * IMAD_FQ_MUL)
+    for ell in (10, 14, log_n):
+        rs = rand_field((ell,), gen, dev)
+        before = kernels.launches.get("eq_evals", 0)
+        eq_evals(rs, ell)
+        per_call = kernels.launches.get("eq_evals", 0) - before
+        if per_call != 1:
+            raise AssertionError(f"eq_evals at 2^{ell}: {per_call} launches "
+                                 f"a call")
+        k = min(ell, 10)
+        chunks = 1 << (ell - k)
+        prods = chunks * ((1 << k) - 1 + max(ell - k - 1, 0))
+        record("eq_evals" if ell == log_n else f"eq_evals_2_{ell}", "fq.cu",
+               "spartan_parallel_tpu/models/dense_mlpoly.py:89",
+               lambda rs=rs, ell=ell: eq_evals(rs, ell),
+               lambda rs=rs, ell=ell: eq_evals_plain(rs, ell), field_err,
+               ((1 << ell) + ell) * E, prods * IMAD_FQ_MUL,
+               counter="eq_evals",
+               extra={"ell": ell, "launches_a_call": per_call})
 
     # K2 at every shape its paths launch (check_msm_kernels)
     side = 1 << (log_n // 2)
@@ -607,7 +692,9 @@ def check_kernels(log_n: int, dev, reps: int):
            8 * nnz + nnz * E + 3 * n * E + E, 2 * nnz * IMAD_FQ_MUL)
 
     # K4: phase 1 at X = n, phase 2 at W * Y = 2 n; a fused step (bind of
-    # the previous round's challenge, then this round's evaluations)
+    # the previous round's challenge, then this round's evaluations): the
+    # old tables' live entries read once, the new ones (half as long along
+    # the axis) written once
     one = lb.to_device(fq.ONE_MONT, dev)[None]
     tx = rand_field((n,), gen, dev)
     B, C, D = (rand_field((1, 1, n), gen, dev) for _ in range(3))
@@ -624,7 +711,7 @@ def check_kernels(log_n: int, dev, reps: int):
     record("sc_p1_round", "sumcheck.cu",
            "spartan_parallel_tpu/ops/sumcheck.py:260",
            lambda: p1(sck.p1_step), lambda: p1(sck.p1_step_plain), cmp_step,
-           8 * n * E, (2 * n + p1_muls(n // 4, 1)) * IMAD_FQ_MUL)
+           6 * n * E, (2 * n + p1_muls(n // 4, 1)) * IMAD_FQ_MUL)
     ABC = rand_field((1, 2, n), gen, dev)
     Z = rand_field((1, 2, n), gen, dev)
 
@@ -635,7 +722,106 @@ def check_kernels(log_n: int, dev, reps: int):
     record("sc_p2_round", "sumcheck.cu",
            "spartan_parallel_tpu/ops/sumcheck.py:427",
            lambda: p2(sck.p2_step), lambda: p2(sck.p2_step_plain), cmp_step,
-           8 * n * E, (2 * n + p2_muls(n // 2, 2)) * IMAD_FQ_MUL)
+           6 * n * E, (2 * n + p2_muls(n // 2, 2)) * IMAD_FQ_MUL)
+
+    # K4 across a whole 2^log_n sumcheck at these shapes: from the fused
+    # round of the rows above (n_half 2^(log_n-1) bound, 2^(log_n-2)
+    # pairs evaluated) every fused round down to n_half = 1, then the
+    # final bind (K1); bound_ms sums the launches' bounds. The first
+    # round's evaluations (no bind) come before these and are timed
+    # beside them (`evals_round_ms`).
+    rs = rand_field((log_n,), gen, dev)
+
+    def whole(step, final, tabs):
+        nh, evs = n // 2, []
+        for j in range(log_n - 1):
+            ev, tabs = step(tabs, rs[j], nh, nh // 2)
+            evs.append(ev)
+            nh //= 2
+        return torch.stack(evs), final(tabs, rs[log_n - 1])
+
+    def cmp_whole(got, want):
+        return max(field_err(got[0], want[0]),
+                   *(field_err(g, w) for g, w in zip(got[1], want[1])))
+
+    def step_times(step, tabs):
+        """One run of the fused rounds with CUDA events around each step
+        (ms a step: the card's time while the host is ahead, the host's
+        once the card waits for it) and the host's seconds to queue them
+        all."""
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+              for _ in range(log_n - 1)]
+        nh = n // 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for j in range(log_n - 1):
+            ev[j][0].record()
+            _, tabs = step(tabs, rs[j], nh, nh // 2)
+            ev[j][1].record()
+            nh //= 2
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return {"step_ms": [a.elapsed_time(b) for a, b in ev],
+                "host_enqueue_ms": host_ms}
+
+    def rounds_bounds(tables, muls):
+        """(bytes, multiplies) of each launch: a fused round reads the
+        old live entries of `tables` tables and writes half as many; the
+        final bind reads two entries of each and writes one."""
+        nb, ni, live = [], [], n
+        for _ in range(log_n - 1):
+            nb.append(tables * (live + live // 2) * E)
+            ni.append(tables * live // 2 + muls(live // 4))
+            live //= 2
+        nb.append(tables * 3 * E)
+        ni.append(tables)
+        return nb, [m * IMAD_FQ_MUL for m in ni]
+
+    def p1_whole(plain):
+        bind = fq.bind_plain if plain else fq.bind
+        return whole(
+            lambda t, r_, nh_prev, nh: (
+                sck.p1_step_plain if plain else sck.p1_step)(
+                    *t, r_, nh_prev, nh, X, X),
+            lambda t, r_: t[:2] + tuple(
+                bind(u, r_, 0 if i == 0 else 2, 1, 1)
+                for i, u in enumerate(t[2:])),
+            (one, one, tx, B, C, D))
+
+    nb1, ni1 = rounds_bounds(4, lambda pairs: p1_muls(pairs, 1))
+    record("sc_p1_rounds", "sumcheck.cu",
+           "spartan_parallel_tpu/ops/sumcheck.py:260",
+           lambda: p1_whole(False), lambda: p1_whole(True), cmp_whole,
+           nb1, ni1, reps_k=5, counter="sc_p1_round",
+           extra={"fused_rounds": log_n - 1, "final_bind": True,
+                  "shape": [1, 1, n], "evals_round_ms": cuda_ms(
+                      lambda: sck.p1_evals(one, one, tx, B, C, D, n // 2,
+                                           X), reps),
+                  **step_times(lambda t, r_, nh_prev, nh: sck.p1_step(
+                      *t, r_, nh_prev, nh, X, X), (one, one, tx, B, C, D))})
+
+    def p2_whole(plain):
+        bind = fq.bind_plain if plain else fq.bind
+        return whole(
+            lambda t, r_, nh_prev, nh: (
+                sck.p2_step_plain if plain else sck.p2_step)(
+                    *t, r_, nh_prev, nh, X, X, True),
+            lambda t, r_: (t[0],) + tuple(bind(u, r_, 2, 1, 1)
+                                          for u in t[1:]),
+            (one, ABC, Z))
+
+    # Z and ABC: two lines of n entries each, 4 tables' worth of n
+    nb2, ni2 = rounds_bounds(4, lambda pairs: p2_muls(2 * pairs, 2))
+    record("sc_p2_rounds", "sumcheck.cu",
+           "spartan_parallel_tpu/ops/sumcheck.py:427",
+           lambda: p2_whole(False), lambda: p2_whole(True), cmp_whole,
+           nb2, ni2, reps_k=5, counter="sc_p2_round",
+           extra={"fused_rounds": log_n - 1, "final_bind": True,
+                  "shape": [1, 2, n], "evals_round_ms": cuda_ms(
+                      lambda: sck.p2_evals(one, ABC, Z, n // 2, X, True),
+                      reps),
+                  **step_times(lambda t, r_, nh_prev, nh: sck.p2_step(
+                      *t, r_, nh_prev, nh, X, X, True), (one, ABC, Z))})
     check_dp_kernels(dev, gen, record, cmp_step, E)
     check_spark_kernels(log_n, dev, gen, record, E)
     check_uni_kernels(dev, gen, record, E)
@@ -742,8 +928,9 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
     """The data-parallel proof's kernels at the shapes of phases 5 and 6:
     P = 4 blocks, Q = 512 (skewed) or 256 (uniform) executions,
     X = Y = 2^10, W = 2. Bytes: each live table entry read once and each
-    written entry written once; operations: the field products (one per
-    bound entry, p1_muls / p2_muls for the evaluations)."""
+    written entry written once (K4's fused steps write tables of the new
+    live length, K5's the whole buffer); operations: the field products
+    (one per bound entry, p1_muls / p2_muls for the evaluations)."""
     import torch
 
     from spartan_parallel_tpu_torch.models import r1csproof as rp
@@ -770,7 +957,7 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
     record("sc_p1_round_dp", "sumcheck.cu", f"{src}:260",
            lambda: sck.p1_step(tp, tq, tx, *Bx, r, 512, 256, X, X),
            lambda: sck.p1_step_plain(tp, tq, tx, *Bx, r, 512, 256, X, X),
-           cmp_step, 6 * n * E + (4 + 256 + 2 * 1024) * E,
+           cmp_step, (3 * n + 3 * n // 2) * E + (4 + 256 + 1024 + 512) * E,
            (3 * n // 2 + 512 + p1_muls(n // 4, 1024)) * IMAD_FQ_MUL,
            path="dp_uniform",           counter="sc_p1_round")
     del Bx
@@ -779,7 +966,7 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
     record("sc_p1_round_q", "sumcheck.cu", f"{src}:260",
            lambda: sck.p1_step(tp, tq, one, *Bq, r, 128, 64, Q, Q),
            lambda: sck.p1_step_plain(tp, tq, one, *Bq, r, 128, 64, Q, Q),
-           cmp_step, 6 * n * E + 2 * 256 * E + 4 * E,
+           cmp_step, (3 * n + 3 * n // 2) * E + (256 + 128 + 4 + 1) * E,
            (3 * n // 2 + 128 + p1_muls(n // 4, 4)) * IMAD_FQ_MUL,
            path="dp_uniform")
     record("sc_p1_round_p", "sumcheck.cu", f"{src}:250",
@@ -793,7 +980,7 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
     record("sc_p2_round_dp", "sumcheck.cu", f"{src}:427",
            lambda: sck.p2_step(tp, ABC, Z, r, 512, 256, X, X, False),
            lambda: sck.p2_step_plain(tp, ABC, Z, r, 512, 256, X, X, False),
-           cmp_step, 4 * n * E + 4 * E,
+           cmp_step, 3 * n * E + 4 * E,
            (n + p2_muls(n // 4, 8)) * IMAD_FQ_MUL, path="dp_uniform",
            counter="sc_p2_round")
     for name, mode in (("sc_p2_round_w", W), ("sc_p2_round_p", P_)):
@@ -1188,29 +1375,6 @@ def hash_poly_plain(addr, val, ts, rh2, rh, rm):
 
     h = fq.add_plain(fq.mul_plain(ts, rh2), fq.mul_plain(val, rh))
     return fq.sub_plain(fq.add_plain(h, addr), rm)
-
-
-def eq_evals_plain(rs, ell: int):
-    """models/dense_mlpoly.py eq_evals from K1's plain versions: doubling
-    up to 2^13 entries, above that the product of the tables of the high
-    and the low half of the variables."""
-    import torch
-
-    from spartan_parallel_tpu_torch.ops import fq
-    from spartan_parallel_tpu_torch.ops import limbs as lb
-
-    def doubling(r, k):
-        tab = lb.to_device(fq.ONE_MONT, r.device)[None]
-        for j in range(k):
-            hi = fq.mul_plain(tab, r[j])
-            tab = torch.stack([fq.sub_plain(tab, hi), hi], 1).reshape(-1, 16)
-        return tab
-
-    if ell <= 13:
-        return doubling(rs, ell)
-    half = ell // 2
-    return fq.mul_plain(doubling(rs[:half], half)[:, None],
-                        doubling(rs[half:], ell - half)[None]).reshape(-1, 16)
 
 
 def abc_comb_plain(tabs, rabc, num_inputs, yperm):
@@ -2039,6 +2203,14 @@ def main() -> int:
         if stack > K11_STACK_MAX:
             raise AssertionError(f"zk_round_tail_kernel keeps {stack} bytes "
                                  f"of stack (at most {K11_STACK_MAX})")
+
+    if "sumcheck" in built and "fq" in built:
+        ps = ptxas_kernels(built["sumcheck"][1])
+        emit({"phase": "ptxas_k4", "card": card,
+              "kernels": {**{k: v for k, v in ps.items()
+                             if k.startswith(("k_p1_round", "k_p2_round"))},
+                          "k_eq_evals": ptxas_kernels(
+                              built["fq"][1])["k_eq_evals"]}})
 
     check_fp_chain(dev, card)
     rows, paths, record = check_kernels(LOG_KERNEL, dev, REPS)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""The chain kernels end to end, one tree at a time: K2 (the batched MSM,
-csrc/msm.cu), K11 (the ZK round tail, csrc/zk_round.cu) and fold_points
-(csrc/msm.cu k_fold).
+"""The redesigned kernels end to end, one tree at a time: K2 (the batched
+MSM, csrc/msm.cu), K11 (the ZK round tail, csrc/zk_round.cu),
+fold_points (csrc/msm.cu k_fold), and every other kernel by name and by
+caller (K1's eq table, K4's sumcheck rounds, ...).
 
     python3 k2_turns.py --root DIR  # the port under DIR (another checkout)
 
@@ -10,17 +11,21 @@ commit unpacked by `git archive`, or this one) on one CUDA card: the NIZK
 at 2^20 x 2^20 x 10 inputs (chip_smoke.py phase 4), the data-parallel
 R1CSProof of BASELINE config 4 with skewed counts [512, 128, 32, 32]
 (phase 5: witness commit, then prove with device-resident rounds, then the
-same tape with the host round loop) and the 9-stage SNARK at the find_min
-shape (phase 8), each under its fixed tape, with every kernel launch timed
-by CUDA events (chip_smoke.kernel_trace). Every prove here is traced, in
-both trees and both forms alike, so its seconds carry the events' cost
-and compare only with each other (chip_smoke.py's `prove_s` are
-untraced). Prints one JSON line: the card, the tree, each prove's
+same tape with the host round loop) and with uniform counts [256] x 4
+(phase 6, the dense prover, device rounds), and the 9-stage SNARK at the
+find_min shape (phase 8), each under its fixed tape, with every kernel
+launch timed by CUDA events (chip_smoke.kernel_trace). Every prove here
+is traced, in both trees and both forms alike, so its seconds carry the
+events' cost and compare only with each other (chip_smoke.py's `prove_s`
+are untraced). Prints one JSON line: the card, the tree, each prove's
 seconds, K2's, K11's and fold_points' launches and ms inside the prove
 and every kernel's (`by_kernel`, summed over its launches; K2 also inside
 the witness commits: NIZK `witness_commit`, config 4's commit, find_min
-`input_commit`), config 4's phase-1 sumcheck seconds in both forms, each
-proof's sha256, and K2's bullet rows alone (1 x 514 ... 1 x 34, 50
+`input_commit`) and every caller's (`by_caller`: each launch under the
+counter its wrapper counted it under too, e.g. K1's eq_fold, pt_fold,
+hash_poly, or else the first function outside ops/ that made it),
+config 4's phase-1 sumcheck seconds in both forms, each proof's sha256,
+and K2's bullet rows alone (1 x 514 ... 1 x 34, 50
 launches each: chip_smoke.py phase 2 times them too, but in one tree a
 call, and a comparison of two trees needs both on one card in one call).
 Run two trees in turns (A, B, B, A) back to back on one card to compare
@@ -106,6 +111,13 @@ def main() -> int:
             **cs.traced(tr_host, (("prove", "R1CSProof::prove"),)),
             "proof_sha256": hashlib.sha256(base["bytes"]).hexdigest()}}
     del run, base
+    with cs.kernel_trace() as tr:
+        run = cs.dp_run([256] * 4, 10, 10, dev, seed_tape=True)
+    out["dp_uniform"] = {
+        "prove_s": run["prove_s"],
+        **cs.traced(tr, (("prove", "R1CSProof::prove"),)),
+        "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest()}
+    del run
     zk_args, zk_pa = ex.build_synthetic_zkvm(
         num_blocks=9, block_cons=8192, num_execs=cs.FINDMIN_EXECS)
     with cs.kernel_trace() as tr:

@@ -1,4 +1,4 @@
-// Host build of the per-element arithmetic in fq.cuh, fp.cuh, fe.cuh,
+// Host build of the per-element arithmetic in fq.cuh, eq.cuh, fp.cuh, fe.cuh,
 // curve.cuh and msm.cuh, of the lane-split point operations and the fold
 // in lanes.cuh, and of the device transcript and round tail in keccak.cuh,
 // ristretto.cuh and zk_round.cuh (g++, no CUDA), so the CPU tests can hold
@@ -6,12 +6,13 @@
 // integers and the JAX package. Code that runs on several lanes runs here
 // through its host model: the same step functions, lane by lane, in the
 // kernel's order (lanes.cuh hq_*, keccak.cuh keccak_lanes_host and HostX,
-// ristretto.cuh comb_host). Each entry maps over n elements of 16-limb
+// ristretto.cuh comb_host, host_eq_evals for k_eq_evals). Each entry maps over n elements of 16-limb
 // int32 values (points: 4 x 16 limbs; states and encodings: one int32 per
 // byte).
 #include <vector>
 
 #include "curve.cuh"
+#include "eq.cuh"
 #include "fe.cuh"
 #include "fq.cuh"
 #include "lanes.cuh"
@@ -382,6 +383,38 @@ void host_zk_round_tail(const int32_t* evs, long k, int32_t* st_io,
   comb_host(p, tab_1, 2, z.sc[1], 32);
   encode_fe_host(z.beta, p);
   zk_tail_finish(x, s, z, st_io, carry, out);
+}
+
+// K1's eq table (csrc/fq.cu k_eq_evals) chunk by chunk, in the kernel's
+// order: the high factor of chunk c by warp 0's halving tree (lane j < h
+// holds variable j's factor, the others the Montgomery one; shfl_down past
+// lane 31 returns the lane's own value), then the k doubling levels in
+// place. rs (ell, 16), out (2^ell, 16).
+void host_eq_evals(const int32_t* rs, int ell, int32_t* out) {
+  std::vector<uint32_t> r(8 * (ell > 0 ? ell : 1));
+  for (int j = 0; j < ell; ++j) load16(rs + 16 * j, &r[8 * j]);
+  const int k = eq_chunk_bits(ell), h = ell - k;
+  std::vector<uint32_t> tab(8 << k);
+  for (unsigned long long c = 0; c < (1ull << h); ++c) {
+    uint32_t f[32][8];
+    const uint32_t one[8] = FQ_ONE_MONT_WORDS;
+    for (int lane = 0; lane < 32; ++lane) {
+      if (lane < h)
+        eq_factor(f[lane], &r[8 * lane], eq_high_bit(c, h, lane));
+      else
+        copy8(f[lane], one);
+    }
+    for (int s = 1; s < h; s <<= 1)
+      for (int lane = 0; lane < 32; ++lane)  // ascending: lane + s unread
+        fq_mul(f[lane], f[lane], f[lane + s < 32 ? lane + s : lane]);
+    copy8(&tab[0], f[0]);
+    for (int m = 0; m < k; ++m)
+      for (int i = 0; i < (1 << m); ++i)
+        eq_split(&tab[8 * i], &tab[8 * (i + (1 << m))], &tab[8 * i],
+                 &r[8 * (ell - 1 - m)]);
+    for (int i = 0; i < (1 << k); ++i)
+      store16(out + 16 * ((c << k) + i), &tab[8 * i]);
+  }
 }
 
 }  // extern "C"

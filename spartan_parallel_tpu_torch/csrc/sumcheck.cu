@@ -2,23 +2,32 @@
 //
 // Replaces the JAX package's ops/sumcheck.py p1_evals / p1_step and
 // p2_evals / p2_step (and, through K1's bind, p1_bind / p2_bind). Tables
-// keep the JAX layout and its fixed-buffer semantics: a table never shrinks,
-// n_half is half of the live length along the axis being bound, and the
-// dead region beyond the live length is the field zero.
+// keep the JAX layout; n_half is half of the live length along the axis
+// being bound.
 //
 //   phase 1: sum over x of eq_p(p) eq_q(q) eq_x(x) (B C - D) at t = 0, 2, 3
 //     for the variable being bound (axis 0 = p, 1 = q, 2 = x);
 //   phase 2: sum of eq_p(p) ABC(p, w, y) Z(p, w, y) at t = 0, 2, 3
 //     (axis 0 = p, 1 = w, 2 = y); ABC may hold one instance shared by all p.
 //
-// One thread per element of the table: thread i < n_half owns the pair
-// (i, i + n_half) and adds its three evaluations; a block sums them in
-// shared memory and a second kernel sums the per-block partials. With
-// bind = 1 the kernel first binds the previous round's challenge r (the
-// fused p1_step / p2_step of the JAX package, same axis only): the thread
-// computes the bound values of its pair from the four entries it needs,
-// writes them to the new tables, and threads past the previous live length
-// write the dead region's zeros.
+// K4 (k_p1_round, k_p2_round): a round's work follows its live pairs.
+// The JAX package keeps every table at its full size for the whole
+// sumcheck (XLA sees static shapes) and writes the dead region's zeros
+// each round, so each round costs the whole buffer. Here the grid covers
+// the live pairs
+// (outer x n_half x inner) only, and a fused step (bind = 1: the previous
+// round's challenge r bound first, the JAX package's p1_step / p2_step,
+// same axis only) writes new tables of the new live length 2 n_half along
+// the axis (ops/sumcheck.py allocates them): the thread of pair i reads
+// entries i, i + n_half, i + 2 n_half, i + 3 n_half of the old tables and
+// writes i and i + n_half of the new. The grid is bounded (the blocks
+// resident at once, each on a contiguous range of pairs), so the second
+// pass sums a few hundred partials; a line's pairs (those sharing the eq
+// factors of the axes not bound) are summed before one product by the
+// line's factor. Loads and stores move 16 bytes (4 limbs) at a time.
+// Bound on the card: bytes. A round reads every live entry once (64 B
+// each) and, fused, writes the bound half; a pair needs 14 field products
+// (8 binds, 6 evaluations), below the card's multiply rate at these bytes.
 //
 // K5, the size-classed phase 1 (k_pc_round), replaces ops/sumcheck.py
 // pc_evals / pc_step for one q-size class of instances: its (P_c, Q_c, X)
@@ -29,9 +38,8 @@
 // live entry per instance) evaluates with eq_q = (tq[0], tq[n_half]) and a
 // zero high half, and its fused bind is the (1 - r) scale.
 //
-// Bound on the card: bytes. A round reads every live table entry once
-// (64 B each) and, fused, writes the bound half; the ~20 products per pair
-// are far below the card's multiply rate.
+// K5 keeps the first design: one thread per entry of the full buffer, the
+// dead region written with zeros, one block sum per 256 entries.
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
@@ -99,169 +107,329 @@ __device__ void finish_block(uint32_t* s0, uint32_t* s2, uint32_t* s3,
   }
 }
 
-// Phase 1. dims = (P, Q, X); eq tables tp (P), tq (Q), tx (X).
-__global__ void k_p1_round(const int32_t* __restrict__ tp,
-                           const int32_t* __restrict__ tq,
-                           const int32_t* __restrict__ tx, Tab B, Tab C,
-                           Tab D, int32_t* __restrict__ neq, long long P,
-                           long long Q, long long X, int axis,
-                           long long n_half, int bind,
-                           const int32_t* __restrict__ r,
-                           uint32_t* __restrict__ part) {
-  uint32_t s0[8], s2[8], s3[8];
-  zero8(s0);
-  zero8(s2);
-  zero8(s3);
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long dims[3] = {P, Q, X};
-  const long long n_axis = dims[axis];
-  const long long inner = axis == 0 ? Q * X : (axis == 1 ? X : 1);
-  const int32_t* eqa = axis == 0 ? tp : (axis == 1 ? tq : tx);
-  if (e < P * Q * X) {
-    const long long in = e % inner, rest = e / inner;
-    const long long i = rest % n_axis, o = rest / n_axis;
-    const long long nhp = 2 * n_half;
-    const bool owner = o == 0 && in == 0;
-    if (i < n_half) {
-      uint32_t rr[8];
-      if (bind) load16(r, rr);
-      const long long lo = (o * n_axis + i) * inner + in;
-      const long long hi = lo + n_half * inner;
-      const long long step = nhp * inner;
-      uint32_t Bl[8], Bh[8], Cl[8], Ch[8], Dl[8], Dh[8], el[8], eh[8];
-      pair_val(Bl, B.src, lo, step, bind, rr);
-      pair_val(Bh, B.src, hi, step, bind, rr);
-      pair_val(Cl, C.src, lo, step, bind, rr);
-      pair_val(Ch, C.src, hi, step, bind, rr);
-      pair_val(Dl, D.src, lo, step, bind, rr);
-      pair_val(Dh, D.src, hi, step, bind, rr);
-      pair_val(el, eqa, i, nhp, bind, rr);
-      pair_val(eh, eqa, i + n_half, nhp, bind, rr);
-      if (bind) {
-        store16(B.dst + 16 * lo, Bl);
-        store16(B.dst + 16 * hi, Bh);
-        store16(C.dst + 16 * lo, Cl);
-        store16(C.dst + 16 * hi, Ch);
-        store16(D.dst + 16 * lo, Dl);
-        store16(D.dst + 16 * hi, Dh);
-        if (owner) {
-          store16(neq + 16 * i, el);
-          store16(neq + 16 * (i + n_half), eh);
-        }
-      }
-      // product of the eq factors of the two axes not being bound
-      uint32_t W[8], f[8];
-      if (axis == 2) {
-        load16(tp + 16 * (o / Q), W);
-        load16(tq + 16 * (o % Q), f);
-      } else if (axis == 1) {
-        load16(tp + 16 * o, W);
-        load16(tx + 16 * in, f);
-      } else {
-        load16(tq + 16 * (in / X), W);
-        load16(tx + 16 * (in % X), f);
-      }
-      fq_mul(W, W, f);
-      eval3(s0, s2, s3, el, eh, Bl, Bh, Cl, Ch, Dl, Dh);
-      fq_mul(s0, s0, W);
-      fq_mul(s2, s2, W);
-      fq_mul(s3, s3, W);
-    } else if (bind && i >= nhp) {
-      const long long at = (o * n_axis + i) * inner + in;
-      uint32_t z[8];
-      zero8(z);
-      store16(B.dst + 16 * at, z);
-      store16(C.dst + 16 * at, z);
-      store16(D.dst + 16 * at, z);
-      if (owner) store16(neq + 16 * i, z);
-    }
+// ---------------------------------------------------------------------------
+// K4: a round's grid and bytes follow its live pairs
+// ---------------------------------------------------------------------------
+#define K4_THREADS 128
+// at most this many blocks (partials) a launch; ops/sumcheck.py sizes the
+// scratch from it
+#define K4_MAX_BLOCKS 2048
+// phase 1's registers are capped for 4 blocks an SM (128 a thread, a few
+// bytes spilled): on the H100 its fused rounds ran faster so than with 3
+// blocks or with the compiler's own 184 registers (2 blocks); phase 2's
+// times did not move with the cap
+#define K4_P1_MIN_BLOCKS 4
+
+// a thread's running sums at t = 0, 2, 3 in shared memory (word-major,
+// thread-minor: no bank conflicts), which frees their registers for the
+// pairs; they are touched once a line
+typedef uint32_t K4Sums[3][8][K4_THREADS];
+
+// one element, 16 bytes at a time (4 limbs a load); the tables are 16-byte
+// aligned (ops/sumcheck.py checks)
+__device__ __forceinline__ void ld_el(uint32_t* v, const int32_t* p) {
+  const int4* q = reinterpret_cast<const int4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int4 x = __ldg(q + k);
+    v[2 * k] = (uint32_t)x.x | ((uint32_t)x.y << 16);
+    v[2 * k + 1] = (uint32_t)x.z | ((uint32_t)x.w << 16);
   }
-  finish_block(s0, s2, s3, part);
 }
 
-// Phase 2. Z (P, W, Y), ABC (PB, W, Y) with PB == P or PB == 1, ep (P).
-__global__ void k_p2_round(const int32_t* __restrict__ ep, Tab A, Tab Z,
-                           int32_t* __restrict__ nep, long long P,
-                           long long PB, long long Wn, long long Y, int axis,
-                           long long n_half, int bind,
-                           const int32_t* __restrict__ r,
-                           uint32_t* __restrict__ part) {
-  uint32_t s0[8], s2[8], s3[8];
-  zero8(s0);
-  zero8(s2);
-  zero8(s3);
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  const long long dims[3] = {P, Wn, Y};
-  const long long n_axis = dims[axis];
-  const long long inner = axis == 0 ? Wn * Y : (axis == 1 ? Y : 1);
-  // ABC is bound along the axis unless the axis is p and ABC is shared
-  const bool fold_a = !(axis == 0 && PB == 1);
-  if (e < P * Wn * Y) {
-    const long long in = e % inner, rest = e / inner;
-    const long long i = rest % n_axis, o = rest / n_axis;
-    const long long nhp = 2 * n_half;
-    long long p, w, y;
-    if (axis == 2) {
-      p = o / Wn; w = o % Wn; y = i;
-    } else if (axis == 1) {
-      p = o; w = i; y = in;
-    } else {
-      p = i; w = in / Y; y = in % Y;
-    }
-    const long long pa = PB == 1 ? 0 : p;
-    const bool a_owner = PB > 1 || p == 0;
-    // ABC index of this thread's element; along the axis it moves like Z
-    const long long a_at = (pa * Wn + w) * Y + y;
-    const long long a_step = axis == 0 ? Wn * Y : (axis == 1 ? Y : 1);
-    if (i < n_half) {
-      uint32_t rr[8];
-      if (bind) load16(r, rr);
-      const long long lo = (o * n_axis + i) * inner + in;
-      const long long hi = lo + n_half * inner;
-      const long long step = nhp * inner;
-      uint32_t Zl[8], Zh[8], Al[8], Ah[8], el[8], eh[8];
-      pair_val(Zl, Z.src, lo, step, bind, rr);
-      pair_val(Zh, Z.src, hi, step, bind, rr);
-      if (fold_a) {
-        pair_val(Al, A.src, a_at, nhp * a_step, bind, rr);
-        pair_val(Ah, A.src, a_at + n_half * a_step, nhp * a_step, bind, rr);
-      } else {
-        load16(A.src + 16 * a_at, Al);
-        copy8(Ah, Al);
+__device__ __forceinline__ void st_el(int32_t* p, const uint32_t* v) {
+  int4* q = reinterpret_cast<int4*>(p);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q[k] = make_int4((int)(v[2 * k] & 0xffffu), (int)(v[2 * k] >> 16),
+                     (int)(v[2 * k + 1] & 0xffffu),
+                     (int)(v[2 * k + 1] >> 16));
+}
+
+// entry idx of T; with BIND, bound to r: T[idx] + r (T[idx + step] - T[idx])
+template <bool BIND>
+__device__ __forceinline__ void k4_val(uint32_t* v, const int32_t* T,
+                                       size_t idx, size_t step,
+                                       const uint32_t* r) {
+  ld_el(v, T + 16 * idx);
+  if (BIND) {
+    uint32_t h[8];
+    ld_el(h, T + 16 * (idx + step));
+    fq_bind(v, v, h, r);
+  }
+}
+
+// the pair (lo, lo + half) of T.src; with BIND, bound to r from the pairs
+// (lo, lo + 2 half) and (lo + half, lo + 3 half) and stored to T.dst at
+// (out, out + half)
+template <bool BIND>
+__device__ __forceinline__ void k4_pair(uint32_t* vl, uint32_t* vh, Tab T,
+                                        size_t lo, size_t half, size_t out,
+                                        const uint32_t* r, bool store) {
+  k4_val<BIND>(vl, T.src, lo, 2 * half, r);
+  k4_val<BIND>(vh, T.src, lo + half, 2 * half, r);
+  if (BIND && store) {
+    st_el(T.dst + 16 * out, vl);
+    st_el(T.dst + 16 * (out + half), vh);
+  }
+}
+
+// x[t] = B_t C_t at t = 0, 2, 3 of the pairs (Bl, Bh), (Cl, Ch)
+__device__ __forceinline__ void k4_prod3(uint32_t (*x)[8], const uint32_t* Bl,
+                                         const uint32_t* Bh,
+                                         const uint32_t* Cl,
+                                         const uint32_t* Ch) {
+  uint32_t b[8], c[8];
+  fq_mul(x[0], Bl, Cl);
+  fq_ext2(b, Bl, Bh);
+  fq_ext2(c, Cl, Ch);
+  fq_mul(x[1], b, c);
+  fq_ext3(b, b, Bl, Bh);
+  fq_ext3(c, c, Cl, Ch);
+  fq_mul(x[2], b, c);
+}
+
+// x[t] -= D_t (SUB) or x[t] *= D_t at t = 0, 2, 3 of the pair (Dl, Dh)
+template <bool SUB>
+__device__ __forceinline__ void k4_apply3(uint32_t (*x)[8],
+                                          const uint32_t* Dl,
+                                          const uint32_t* Dh) {
+  uint32_t d[8];
+  if (SUB) fq_sub(x[0], x[0], Dl); else fq_mul(x[0], x[0], Dl);
+  fq_ext2(d, Dl, Dh);
+  if (SUB) fq_sub(x[1], x[1], d); else fq_mul(x[1], x[1], d);
+  fq_ext3(d, d, Dl, Dh);
+  if (SUB) fq_sub(x[2], x[2], d); else fq_mul(x[2], x[2], d);
+}
+
+__device__ __forceinline__ void add3(uint32_t (*s)[8], uint32_t (*x)[8]) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) fq_add(s[t], s[t], x[t]);
+}
+
+// s += W ln and ln = 0: the sums of a line (pairs sharing the eq factors of
+// the axes not bound) scaled once by their factor W
+__device__ __forceinline__ void k4_flush(K4Sums& s, uint32_t (*ln)[8],
+                                         const uint32_t* W) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    uint32_t v[8];
+    fq_mul(ln[t], ln[t], W);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) v[w] = s[t][w][threadIdx.x];
+    fq_add(v, v, ln[t]);
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[t][w][threadIdx.x] = v[w];
+    zero8(ln[t]);
+  }
+}
+
+__device__ __forceinline__ void k4_start(K4Sums& s, uint32_t (*ln)[8]) {
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s[t][w][threadIdx.x] = 0;
+    zero8(ln[t]);
+  }
+}
+
+// v summed over the warp's lanes into lane 0
+__device__ __forceinline__ void warp_sum8(uint32_t* v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    uint32_t t[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t[k] = __shfl_down_sync(0xffffffffu, v[k], off);
+    fq_add(v, v, t);
+  }
+}
+
+// the block's three sums into part[t * gridDim.x + blockIdx.x], or, from a
+// grid of one block, into out (3, 16 limbs) with no second pass
+__device__ void k4_block_sum(K4Sums& s, uint32_t* part, int32_t* out) {
+  __shared__ uint32_t sh[3][K4_THREADS / 32][8];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < 3; ++t) {
+    uint32_t v[8];
+#pragma unroll
+    for (int w = 0; w < 8; ++w) v[w] = s[t][w][threadIdx.x];
+    warp_sum8(v);
+    if (lane == 0) copy8(sh[t][warp], v);
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      uint32_t v[8];
+      if (lane < K4_THREADS / 32) copy8(v, sh[t][lane]); else zero8(v);
+      warp_sum8(v);
+      if (lane == 0) {
+        if (gridDim.x == 1)
+          store16(out + 16 * t, v);
+        else
+          copy8(part + 8 * (t * gridDim.x + blockIdx.x), v);
       }
-      if (axis == 0) {
-        pair_val(el, ep, i, nhp, bind, rr);
-        pair_val(eh, ep, i + n_half, nhp, bind, rr);
-      } else {
-        load16(ep + 16 * p, el);
-        copy8(eh, el);
-      }
-      if (bind) {
-        store16(Z.dst + 16 * lo, Zl);
-        store16(Z.dst + 16 * hi, Zh);
-        if (fold_a && a_owner) {
-          store16(A.dst + 16 * a_at, Al);
-          store16(A.dst + 16 * (a_at + n_half * a_step), Ah);
-        }
-        if (axis == 0 && in == 0) {
-          store16(nep + 16 * i, el);
-          store16(nep + 16 * (i + n_half), eh);
-        }
-      }
-      // E * A * Z at t = 0, 2, 3: eval3 with B = A, C = Z, D = 0
-      uint32_t z8[8];
-      zero8(z8);
-      eval3(s0, s2, s3, el, eh, Al, Ah, Zl, Zh, z8, z8);
-    } else if (bind && i >= nhp) {
-      const long long at = (o * n_axis + i) * inner + in;
-      uint32_t z[8];
-      zero8(z);
-      store16(Z.dst + 16 * at, z);
-      if (fold_a && a_owner) store16(A.dst + 16 * a_at, z);
-      if (axis == 0 && in == 0) store16(nep + 16 * i, z);
     }
   }
-  finish_block(s0, s2, s3, part);
+}
+
+// this block's contiguous range [e0, e1) of the pairs; its threads stride
+// through it, neighbouring threads on neighbouring entries
+__device__ __forceinline__ void k4_range(unsigned npairs, unsigned& e0,
+                                         unsigned& e1) {
+  const unsigned per = (npairs + gridDim.x - 1) / gridDim.x;
+  e0 = blockIdx.x * per;
+  e1 = min(e0 + per, npairs);
+}
+
+struct P1Args {
+  const int32_t *tp, *tq, *tx;
+  Tab B, C, D;
+  int32_t* neq;         // the bound eq table of the axis (2 n_half)
+  unsigned P, Q, X;     // the input tables' dims
+  unsigned n_half;      // along AXIS
+  const int32_t* r;
+  uint32_t* part;
+  int32_t* out;
+};
+
+// Phase 1: the pairs (o, i, in), i < n_half, along AXIS of (P, Q, X).
+template <int AXIS, bool BIND>
+__global__ void __launch_bounds__(K4_THREADS, K4_P1_MIN_BLOCKS)
+    k_p1_round(P1Args a) {
+  const unsigned n_in = AXIS == 0 ? a.P : (AXIS == 1 ? a.Q : a.X);
+  const unsigned inner = AXIS == 0 ? a.Q * a.X : (AXIS == 1 ? a.X : 1u);
+  const unsigned outer = AXIS == 0 ? 1u : (AXIS == 1 ? a.P : a.P * a.Q);
+  const unsigned nh = a.n_half;
+  const int32_t* eqa = AXIS == 0 ? a.tp : (AXIS == 1 ? a.tq : a.tx);
+  uint32_t rr[8];
+  if (BIND) load16(a.r, rr);
+  __shared__ K4Sums s;
+  uint32_t ln[3][8], W[8];
+  k4_start(s, ln);
+  zero8(W);
+  unsigned key = 0xffffffffu, e0, e1;
+  k4_range(outer * nh * inner, e0, e1);
+  for (unsigned e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    const unsigned in = e % inner, rest = e / inner;
+    const unsigned i = rest % nh, o = rest / nh;
+    const size_t half = (size_t)nh * inner;
+    const size_t lo = ((size_t)o * n_in + i) * inner + in;
+    const size_t out = ((size_t)o * 2 * nh + i) * inner + in;
+    uint32_t x[3][8];
+    {
+      uint32_t Bl[8], Bh[8], Cl[8], Ch[8];
+      k4_pair<BIND>(Bl, Bh, a.B, lo, half, out, rr, true);
+      k4_pair<BIND>(Cl, Ch, a.C, lo, half, out, rr, true);
+      k4_prod3(x, Bl, Bh, Cl, Ch);
+    }
+    {
+      uint32_t Dl[8], Dh[8];
+      k4_pair<BIND>(Dl, Dh, a.D, lo, half, out, rr, true);
+      k4_apply3<true>(x, Dl, Dh);
+    }
+    {
+      uint32_t el[8], eh[8];
+      k4_pair<BIND>(el, eh, Tab{eqa, a.neq}, i, nh, i, rr,
+                    o == 0 && in == 0);
+      k4_apply3<false>(x, el, eh);
+    }
+    // the line o * inner + in: the eq factors of the two axes not bound
+    const unsigned line = o * inner + in;
+    if (line != key) {
+      if (key != 0xffffffffu) k4_flush(s, ln, W);
+      key = line;
+      uint32_t f[8];
+      if (AXIS == 2) {
+        load16(a.tp + 16 * (o / a.Q), W);
+        load16(a.tq + 16 * (o % a.Q), f);
+      } else if (AXIS == 1) {
+        load16(a.tp + 16 * o, W);
+        load16(a.tx + 16 * in, f);
+      } else {
+        load16(a.tq + 16 * (in / a.X), W);
+        load16(a.tx + 16 * (in % a.X), f);
+      }
+      fq_mul(W, W, f);
+    }
+    add3(ln, x);
+  }
+  if (key != 0xffffffffu) k4_flush(s, ln, W);
+  k4_block_sum(s, a.part, a.out);
+}
+
+struct P2Args {
+  const int32_t* ep;
+  Tab A, Z;
+  int32_t* nep;           // the bound eq_p table (AXIS 0)
+  unsigned P, PB, Wn, Y;  // Z (P, Wn, Y), ABC (PB, Wn, Y), PB = P or 1
+  unsigned n_half;
+  const int32_t* r;
+  uint32_t* part;
+  int32_t* out;
+};
+
+// Phase 2: the pairs (o, i, in) along AXIS of Z (P, Wn, Y); ABC is bound
+// along the axis unless the axis is p and ABC is shared (PB = 1); eq_p
+// scales a line (AXIS 1, 2) or is bound with the pair (AXIS 0).
+template <int AXIS, bool BIND>
+__global__ void __launch_bounds__(K4_THREADS) k_p2_round(P2Args a) {
+  const unsigned n_in = AXIS == 0 ? a.P : (AXIS == 1 ? a.Wn : a.Y);
+  const unsigned inner = AXIS == 0 ? a.Wn * a.Y : (AXIS == 1 ? a.Y : 1u);
+  const unsigned outer = AXIS == 0 ? 1u : (AXIS == 1 ? a.P : a.P * a.Wn);
+  const unsigned nh = a.n_half;
+  const bool fold_a = !(AXIS == 0 && a.PB == 1);
+  uint32_t rr[8];
+  if (BIND) load16(a.r, rr);
+  __shared__ K4Sums s;
+  uint32_t ln[3][8], W[8];
+  k4_start(s, ln);
+  zero8(W);
+  unsigned key = 0xffffffffu, e0, e1;
+  k4_range(outer * nh * inner, e0, e1);
+  for (unsigned e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    const unsigned in = e % inner, rest = e / inner;
+    const unsigned i = rest % nh, o = rest / nh;
+    const unsigned p = AXIS == 2 ? o / a.Wn : (AXIS == 1 ? o : i);
+    const size_t half = (size_t)nh * inner;
+    const size_t lo = ((size_t)o * n_in + i) * inner + in;
+    const size_t out = ((size_t)o * 2 * nh + i) * inner + in;
+    uint32_t x[3][8];
+    {
+      uint32_t Al[8], Ah[8], Zl[8], Zh[8];
+      if (fold_a) {
+        // ABC's line: Z's, with p = 0 when one instance is shared
+        const unsigned oa = a.PB > 1 ? o : (AXIS == 2 ? o % a.Wn : 0u);
+        const size_t la = ((size_t)oa * n_in + i) * inner + in;
+        const size_t oa_out = ((size_t)oa * 2 * nh + i) * inner + in;
+        k4_pair<BIND>(Al, Ah, a.A, la, half, oa_out, rr,
+                      a.PB > 1 || p == 0);
+      } else {
+        ld_el(Al, a.A.src + 16 * (size_t)in);
+        copy8(Ah, Al);
+      }
+      k4_pair<BIND>(Zl, Zh, a.Z, lo, half, out, rr, true);
+      k4_prod3(x, Al, Ah, Zl, Zh);
+    }
+    if (AXIS == 0) {  // eq_p varies along the axis: one line, factor 1
+      uint32_t el[8], eh[8];
+      k4_pair<BIND>(el, eh, Tab{a.ep, a.nep}, i, nh, i, rr, in == 0);
+      k4_apply3<false>(x, el, eh);
+      if (key != 0u) {
+        key = 0u;
+        const uint32_t one[8] = FQ_ONE_MONT_WORDS;
+        copy8(W, one);
+      }
+    } else if (p != key) {
+      if (key != 0xffffffffu) k4_flush(s, ln, W);
+      key = p;
+      load16(a.ep + 16 * p, W);
+    }
+    add3(ln, x);
+  }
+  if (key != 0xffffffffu) k4_flush(s, ln, W);
+  k4_block_sum(s, a.part, a.out);
 }
 
 // K5: one q-size class. Tables (Pc, Qn, Xn), at instance offset p0 and q
@@ -369,9 +537,38 @@ static unsigned blocks(long long n) {
   return (unsigned)((n + REDUCE_THREADS - 1) / REDUCE_THREADS);
 }
 
+// K4's grid: one block per K4_THREADS pairs, at most the blocks that are
+// resident at once (SMs x the kernel's blocks an SM, read once a kernel)
+// and K4_MAX_BLOCKS. Returns the blocks launched (the partials).
+template <typename Args>
+static unsigned k4_go(void (*fn)(Args), int slot, const Args& a,
+                      unsigned npairs, cudaStream_t s) {
+  static int nsm = 0;
+  static int occ[12] = {0};
+  if (nsm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (occ[slot] == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[slot], fn, K4_THREADS,
+                                                  0);
+    if (occ[slot] < 1) occ[slot] = 1;
+  }
+  unsigned nb = (npairs + K4_THREADS - 1) / K4_THREADS;
+  const unsigned cap = (unsigned)(nsm * occ[slot]);
+  if (nb > cap) nb = cap;
+  if (nb > K4_MAX_BLOCKS) nb = K4_MAX_BLOCKS;
+  if (nb < 1) nb = 1;
+  fn<<<nb, K4_THREADS, 0, s>>>(a);
+  return nb;
+}
+
 extern "C" {
 
-// part: 3 * ceil(P Q X / 256) scratch values of 8 words; out (3, 16).
+// part: 3 * min(ceil(npairs / K4_THREADS), K4_MAX_BLOCKS) scratch values of
+// 8 words; out (3, 16). With bind, nB/nC/nD/neq have 2 n_half entries along
+// the axis.
 int p1_round_launch(const int32_t* tp, const int32_t* tq, const int32_t* tx,
                     const int32_t* B, const int32_t* C, const int32_t* D,
                     int32_t* nB, int32_t* nC, int32_t* nD, int32_t* neq,
@@ -379,26 +576,49 @@ int p1_round_launch(const int32_t* tp, const int32_t* tq, const int32_t* tx,
                     long long n_half, int bind, const int32_t* r,
                     uint32_t* part, int32_t* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = blocks(P * Q * X);
-  k_p1_round<<<nb, REDUCE_THREADS, 0, s>>>(tp, tq, tx, Tab{B, nB},
-                                           Tab{C, nC}, Tab{D, nD}, neq, P, Q,
-                                           X, axis, n_half, bind, r, part);
-  reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
+  const P1Args a{tp, tq, tx, Tab{B, nB}, Tab{C, nC}, Tab{D, nD}, neq,
+                 (unsigned)P, (unsigned)Q, (unsigned)X, (unsigned)n_half, r,
+                 part, out};
+  const long long dims[3] = {P, Q, X};
+  const unsigned np = (unsigned)(P * Q * X / dims[axis] * n_half);
+  unsigned nb = 0;
+  switch (axis * 2 + (bind ? 1 : 0)) {
+    case 0: nb = k4_go(k_p1_round<0, false>, 0, a, np, s); break;
+    case 1: nb = k4_go(k_p1_round<0, true>, 1, a, np, s); break;
+    case 2: nb = k4_go(k_p1_round<1, false>, 2, a, np, s); break;
+    case 3: nb = k4_go(k_p1_round<1, true>, 3, a, np, s); break;
+    case 4: nb = k4_go(k_p1_round<2, false>, 4, a, np, s); break;
+    case 5: nb = k4_go(k_p1_round<2, true>, 5, a, np, s); break;
+    default: return -1;
+  }
+  if (nb > 1) reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
   return (int)cudaGetLastError();
 }
 
-// part: 3 * ceil(P W Y / 256) scratch values of 8 words; out (3, 16).
+// part and out as p1_round_launch's; with bind, nZ, nABC (unless the axis
+// is p and ABC is shared) and nep (axis p) have 2 n_half entries along it.
 int p2_round_launch(const int32_t* ep, const int32_t* ABC, const int32_t* Z,
                     int32_t* nABC, int32_t* nZ, int32_t* nep, long long P,
                     long long PB, long long Wn, long long Y, int axis,
                     long long n_half, int bind, const int32_t* r,
                     uint32_t* part, int32_t* out, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = blocks(P * Wn * Y);
-  k_p2_round<<<nb, REDUCE_THREADS, 0, s>>>(ep, Tab{ABC, nABC}, Tab{Z, nZ},
-                                           nep, P, PB, Wn, Y, axis, n_half,
-                                           bind, r, part);
-  reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
+  const P2Args a{ep, Tab{ABC, nABC}, Tab{Z, nZ}, nep, (unsigned)P,
+                 (unsigned)PB, (unsigned)Wn, (unsigned)Y, (unsigned)n_half, r,
+                 part, out};
+  const long long dims[3] = {P, Wn, Y};
+  const unsigned np = (unsigned)(P * Wn * Y / dims[axis] * n_half);
+  unsigned nb = 0;
+  switch (axis * 2 + (bind ? 1 : 0)) {
+    case 0: nb = k4_go(k_p2_round<0, false>, 6, a, np, s); break;
+    case 1: nb = k4_go(k_p2_round<0, true>, 7, a, np, s); break;
+    case 2: nb = k4_go(k_p2_round<1, false>, 8, a, np, s); break;
+    case 3: nb = k4_go(k_p2_round<1, true>, 9, a, np, s); break;
+    case 4: nb = k4_go(k_p2_round<2, false>, 10, a, np, s); break;
+    case 5: nb = k4_go(k_p2_round<2, true>, 11, a, np, s); break;
+    default: return -1;
+  }
+  if (nb > 1) reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
   return (int)cudaGetLastError();
 }
 

@@ -7,8 +7,7 @@ is the JAX package's, byte for byte; the tensors are PyTorch:
 
   * evaluation tables are (n, 16) int32 Montgomery limb tensors on the
     caller's device (ops/fq.py, K1);
-  * the eq table is built by doubling (K1 mul and sub), and above 2^13
-    entries as the product of two half tables;
+  * the eq table is one K1 launch (csrc/fq.cu k_eq_evals);
   * Hyrax row commitments are one batched MSM (K2) of all sqrt(N) rows;
   * the L*Z row contraction and evaluations are K1 dot reductions;
   * a table read as univariate coefficients (ShiftProofs) is evaluated
@@ -21,7 +20,7 @@ import torch
 
 from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
-from ..ops import fq
+from ..ops import fq, kernels
 from ..ops import limbs as lb
 from ..ops.uni import fq_powers
 from ..utils.errors import ProofVerifyError
@@ -66,31 +65,44 @@ def mont_to_scalar(a: torch.Tensor) -> Scalar:
 # --------------------------------------------------------------------------
 # Eq polynomial
 # --------------------------------------------------------------------------
-def _eq_mul(a, b):
-    return fq.mul(a, b, counter="eq_evals")
+def eq_evals_plain(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
+    """The plain version of eq_evals from K1's plain versions (the JAX
+    package's build): doubling up to 2^13 entries, above that the product
+    of the tables of the high and the low half of the variables."""
+    def doubling(r, k):
+        tab = lb.to_device(fq.ONE_MONT, r.device)[None]
+        for j in range(k):
+            hi = fq.mul_plain(tab, r[j])
+            tab = torch.stack([fq.sub_plain(tab, hi), hi], 1).reshape(-1, 16)
+        return tab
 
-
-def _eq_doubling(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
-    """(2^ell, 16) eq table by doubling: the index's MSB is r[0]."""
-    tab = lb.to_device(fq.ONE_MONT, r_mont.device)[None]
-    for j in range(ell):
-        hi = _eq_mul(tab, r_mont[j])
-        lo = fq.sub(tab, hi, counter="eq_evals")
-        tab = torch.stack([lo, hi], dim=1).reshape(-1, 16)
-    return tab
+    if ell <= 13:
+        return doubling(r_mont, ell)
+    half = ell // 2
+    return fq.mul_plain(doubling(r_mont[:half], half)[:, None],
+                        doubling(r_mont[half:], ell - half)[None]
+                        ).reshape(-1, 16)
 
 
 def eq_evals(r_mont: torch.Tensor, ell: int) -> torch.Tensor:
     """(ell, 16) Montgomery challenges -> (2^ell, 16) eq table
-    (dense_mlpoly.rs:76-91). Above 2^13 entries it is the product of the
-    tables of the high and the low half of the variables (hi-major). The
-    products are K1 launches counted as eq_evals."""
-    if ell <= 13:
-        return _eq_doubling(r_mont, ell)
-    half = ell // 2
-    hi_tab = _eq_doubling(r_mont[:half], half)
-    lo_tab = _eq_doubling(r_mont[half:], ell - half)
-    return _eq_mul(hi_tab[:, None], lo_tab[None]).reshape(-1, 16)
+    (dense_mlpoly.rs:76-91; the index's MSB is r[0]). On the card one K1
+    launch for any ell >= 1 (csrc/fq.cu k_eq_evals, counted as eq_evals);
+    CPU challenges take eq_evals_plain."""
+    fq._check_limbs(r_mont)
+    if r_mont.device.type == "cpu":
+        return eq_evals_plain(r_mont, ell)
+    if ell == 0:
+        return lb.to_device(fq.ONE_MONT, r_mont.device)[None]
+    if ell > 41:  # the grid's 2^31 chunks of 2^10 entries
+        raise ValueError(f"an eq table of 2^{ell} entries")
+    r_mont = r_mont[:ell].contiguous()
+    kernels.require_cuda(r_mont)
+    out = torch.empty((1 << ell, 16), dtype=torch.int32,
+                      device=r_mont.device)
+    kernels.launch("eq_evals", "eq_evals_launch", r_mont.data_ptr(), ell,
+                   out.data_ptr(), kernels.stream(r_mont))
+    return out
 
 
 class EqPolynomial:

@@ -393,7 +393,8 @@ class ZKSumcheckInstanceProof:
             return evd
 
         def settle(rm_p, nh_p, mode_p):
-            tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p)
+            tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p,
+                                  out_len=nh_p)
 
         def gather():
             tabs[2:] = pmesh.gather_axis(
@@ -407,7 +408,8 @@ class ZKSumcheckInstanceProof:
             gens_1, gens_n, transcript, random_tape, B.device)
         if pending is not None:  # final bind for the last round
             rm_p, nh_p, mode_p = pending
-            tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p)
+            tabs[:] = sck.p1_bind(*tabs, rm_p, nh_p, mode=mode_p,
+                                  out_len=nh_p)
         tp, tq, tx, B, C, D = tabs
         tpv, tqv, txv = (mont_to_scalar(t[0]) for t in (tp, tq, tx))
         claims = [
@@ -534,7 +536,7 @@ class ZKSumcheckInstanceProof:
             merge(None, None)
         elif pending[2] == MODE_P:  # final bind for the last round
             tabs = sck.p1_bind(*tables(), *merged, pending[0], pending[1],
-                               mode=MODE_P)
+                               mode=MODE_P, out_len=pending[1])
             eq[MODE_P], eq[MODE_Q], eq[MODE_X] = tabs[:3]
             merged[:] = tabs[3:]
         else:
@@ -576,7 +578,7 @@ class ZKSumcheckInstanceProof:
 
         def settle(rm_p, nh_p, mode_p):
             tabs[:] = sck.p2_bind(*tabs, rm_p, nh_p, mode=mode_p,
-                                  single_inst=single_inst)
+                                  single_inst=single_inst, out_len=nh_p)
 
         def gather():
             tabs[1:] = pmesh.gather_axis(mesh, [(tabs[1], 2), (tabs[2], 2)])
@@ -590,7 +592,7 @@ class ZKSumcheckInstanceProof:
         if pending is not None:  # final bind for the last round
             rm_p, nh_p, mode_p = pending
             tabs[:] = sck.p2_bind(*tabs, rm_p, nh_p, mode=mode_p,
-                                  single_inst=single_inst)
+                                  single_inst=single_inst, out_len=nh_p)
         ep, ABC, Z = tabs
         claims = [
             mont_to_scalar(ep[0]),

@@ -9,10 +9,11 @@ current stream as ctypes.c_void_p; every C entry returns
 cudaGetLastError() and `launch` raises when it is not 0.
 
 `launches` counts, per wrapper, the calls that launched a kernel on the
-card; a function built on K1's wrappers (eq tables, eq_fold, pc_bind, the
-ABC combination, SPARK's hash layer and product-tree folds, the rlc dot
-of ShiftProofs) also counts its launches under its own name. CPU tensors
-take the plain PyTorch versions and are not counted.
+card; a function built on K1's wrappers (eq_fold, pc_bind, the ABC
+combination, SPARK's hash layer and product-tree folds, the rlc dot of
+ShiftProofs) also counts its launches under its own name. The eq table is
+K1's own kernel, counted as eq_evals. CPU tensors take the plain PyTorch
+versions and are not counted.
 
 K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
 Keccak permutation, ristretto compression, comb commitments and the round
@@ -52,6 +53,7 @@ _ENTRIES = {
     "fq_bind_launch": ("fq", [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]),
     "fq_dot_launch": ("fq", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                              _I64, _P]),
+    "eq_evals_launch": ("fq", [_P, _I32, _P, _P]),
     "msm_launch": ("msm", [_P] * 7 + [_I64, _I64, _P]),
     "msm_window_occupancy": ("msm", [_P]),
     "msm_chunking": ("msm", [_I64, _P, _P]),
@@ -174,10 +176,15 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
+_fns: dict = {}
+
+
 def launch(counter: str, entry: str, *args) -> None:
     """Call a C entry point (pointers and the stream as Python ints),
     count the launch under `counter`, and raise on a CUDA error."""
-    fn = getattr(_lib(_ENTRIES[entry][0]), entry)
+    fn = _fns.get(entry)
+    if fn is None:
+        fn = _fns[entry] = getattr(_lib(_ENTRIES[entry][0]), entry)
     count(counter)
     rc = fn(*args)
     if rc != 0:

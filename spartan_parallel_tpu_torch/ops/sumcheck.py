@@ -1,12 +1,18 @@
 """Sumcheck round kernels for the two R1CS sumchecks (K4, K5).
 
 Counterpart of the JAX package's ops/sumcheck.py (dense p1_*, p2_*,
-fold_chain, and the q-size-classed eq_fold, pc_*). Same layout and
-semantics: phase-1 tables are (P, Q, X, 16) with q and x bit-reversed,
-phase-2 tables (P, W, Y, 16) with y bit-reversed; eq tables stay factored
-per axis. Buffers keep their size for the whole sumcheck: `n_half` is half
-the live length along the axis being bound, and the region past the live
-length is the field zero.
+fold_chain, and the q-size-classed eq_fold, pc_*). Same layout: phase-1
+tables are (P, Q, X, 16) with q and x bit-reversed, phase-2 tables
+(P, W, Y, 16) with y bit-reversed; eq tables stay factored per axis.
+`n_half` is half the live length along the axis being bound, and the
+region past the live length is the field zero.
+
+The JAX package keeps every buffer at its size for the whole sumcheck
+(XLA sees static shapes). Here the steps of K4's sumchecks (`p1_step`,
+`p2_step`, plain and on the card alike) return tables of the new live
+length along the axis they bound, so the next round reads and writes only
+live entries; `p1_bind` / `p2_bind` keep the buffer's length unless given
+`out_len`. K5's class tables (`pc_*`) keep the fixed buffers.
 
 `p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch K4 and
 `pc_evals` / `pc_step` launch K5 (csrc/sumcheck.cu) on CUDA tensors: a
@@ -117,13 +123,15 @@ def p1_evals_plain(tp, tq, tx, B, C, D, n_half: int, mode: int):
     return torch.stack([e0, e2, e3])
 
 
-def p1_bind(tp, tq, tx, B, C, D, r, n_half: int, mode: int):
-    """Bind the round's variable to r in every phase-1 table (K1)."""
+def p1_bind(tp, tq, tx, B, C, D, r, n_half: int, mode: int,
+            out_len: int | None = None):
+    """Bind the round's variable to r in every phase-1 table (K1); the
+    bound axis keeps its length, or has out_len entries."""
     axis = _P1_AXIS[mode]
     n_half = int(n_half)
-    B, C, D = (fq.bind(t, r, axis, n_half) for t in (B, C, D))
+    B, C, D = (fq.bind(t, r, axis, n_half, out_len) for t in (B, C, D))
     eqs = [tp, tq, tx]
-    eqs[axis] = fq.bind(eqs[axis], r, 0, n_half)
+    eqs[axis] = fq.bind(eqs[axis], r, 0, n_half, out_len)
     return (*eqs, B, C, D)
 
 
@@ -138,7 +146,10 @@ def _p1_compact(tp, tq, tx, B, C, D, mode: int):
 
 def p1_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
                   mode_prev: int, mode: int):
-    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev)
+    """The previous round's bind, to the new live length n_half_prev along
+    its axis, then this round's evaluations; returns (evals, tables)."""
+    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev,
+                   int(n_half_prev))
     tabs = _p1_compact(*tabs, mode)
     return p1_evals_plain(*tabs, n_half, mode), tabs
 
@@ -169,15 +180,17 @@ def p2_evals_plain(ep, ABC, Z, n_half: int, mode: int, single_inst: bool):
     return torch.stack([e0, e2, e3])
 
 
-def p2_bind(ep, ABC, Z, r, n_half: int, mode: int, single_inst: bool):
-    """Bind the round's variable to r in every phase-2 table (K1)."""
+def p2_bind(ep, ABC, Z, r, n_half: int, mode: int, single_inst: bool,
+            out_len: int | None = None):
+    """Bind the round's variable to r in every phase-2 table (K1); the
+    bound axis keeps its length, or has out_len entries."""
     axis = _P2_AXIS[mode]
     n_half = int(n_half)
-    Z = fq.bind(Z, r, axis, n_half)
+    Z = fq.bind(Z, r, axis, n_half, out_len)
     if not (mode == MODE_P and single_inst):
-        ABC = fq.bind(ABC, r, axis, n_half)
+        ABC = fq.bind(ABC, r, axis, n_half, out_len)
     if mode == MODE_P:
-        ep = fq.bind(ep, r, 0, n_half)
+        ep = fq.bind(ep, r, 0, n_half, out_len)
     return ep, ABC, Z
 
 
@@ -191,7 +204,9 @@ def _p2_compact(ep, ABC, Z, mode: int):
 
 def p2_step_plain(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
                   mode: int, single_inst: bool):
-    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst)
+    """As p1_step_plain, for phase 2."""
+    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst,
+                   int(n_half_prev))
     tabs = _p2_compact(*tabs, mode)
     return p2_evals_plain(*tabs, n_half, mode, single_inst), tabs
 
@@ -206,35 +221,75 @@ def _scratch(n_elems: int, device):
     return part, out
 
 
-def _p1_launch(tp, tq, tx, B, C, D, n_half, mode, r=None, n_half_prev=None):
-    axis = _P1_AXIS[mode]
-    bind = r is not None
+_K4_THREADS = 128  # csrc/sumcheck.cu K4_THREADS
+_K4_MAX_BLOCKS = 2048  # csrc/sumcheck.cu K4_MAX_BLOCKS
+
+
+def _k4_prep(tabs, n_axis: int, n_half: int, bind: bool, n_half_prev,
+             n_entries: int) -> list:
+    """K4's checks: the pairs of the round (and, fused, of the bind)
+    inside the tables, indices below 2^31, 16-byte aligned tables.
+    Returns the tables' pointers."""
     if bind and 2 * n_half != n_half_prev:
         raise ValueError("fused step binds the same axis: n_half_prev "
                          "must be 2 * n_half")
-    P, Q, X = B.shape[:3]
+    if n_half < 1 or (4 if bind else 2) * n_half > n_axis:
+        raise ValueError(f"n_half {n_half} outside an axis of {n_axis}")
+    if n_entries >= 1 << 31:
+        raise ValueError("K4 indexes tables below 2^31 entries")
+    ptrs = [t.data_ptr() for t in tabs]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("K4 reads 16-byte aligned tables")
+    return ptrs
+
+
+def _k4_scratch(npairs: int, device):
+    """The (3, 16) evaluations and the partials of at most
+    min(ceil(npairs / K4_THREADS), K4_MAX_BLOCKS) blocks."""
+    nb = max(1, min(-(-npairs // _K4_THREADS), _K4_MAX_BLOCKS))
+    out = torch.empty((3, 16), dtype=torch.int32, device=device)
+    part = torch.empty(24 * nb, dtype=torch.int32, device=device)
+    return out, part
+
+
+def _new_table(t: torch.Tensor, axis: int, n: int, copies: int = 1):
+    """New tables of t's shape with n entries along `axis`: one tensor,
+    or `copies` of them in one allocation (the host's share of a round is
+    most of a small round's time)."""
+    shape = list(t.shape)
+    shape[axis] = n
+    if copies == 1:
+        return torch.empty(shape, dtype=torch.int32, device=t.device)
+    return torch.empty([copies] + shape, dtype=torch.int32,
+                       device=t.device).unbind(0)
+
+
+def _p1_launch(tp, tq, tx, B, C, D, n_half, mode, r=None, n_half_prev=None):
+    axis = _P1_AXIS[mode]
+    bind = r is not None
+    dims = B.shape[:3]
     if C.shape != B.shape or D.shape != B.shape or \
-            (tp.shape[0], tq.shape[0], tx.shape[0]) != (P, Q, X):
+            (tp.shape[0], tq.shape[0], tx.shape[0]) != dims:
         raise ValueError("phase-1 table shapes disagree")
     tabs = [t.contiguous() for t in (tp, tq, tx, B, C, D)]
     r = r.reshape(16).contiguous() if bind else tabs[0]
     kernels.require_cuda(*tabs, r)
-    dev = B.device
-    if bind:
-        nB, nC, nD = (torch.empty_like(t) for t in tabs[3:])
-        neq = torch.empty_like(tabs[axis])
+    P, Q, X = dims
+    ptrs = _k4_prep(tabs, dims[axis], n_half, bind, n_half_prev, P * Q * X)
+    if bind:  # the new tables: 2 n_half entries along the axis
+        nB, nC, nD = _new_table(tabs[3], axis, 2 * n_half, 3)
+        neq = _new_table(tabs[axis], 0, 2 * n_half)
     else:
         nB = nC = nD = neq = tabs[0]
-    part, out = _scratch(P * Q * X, dev)
-    kernels.launch(_P1_COUNTER[axis], "p1_round_launch",
-                   *(t.data_ptr() for t in tabs),
+    out, part = _k4_scratch(P * Q * X // dims[axis] * n_half, B.device)
+    kernels.launch(_P1_COUNTER[axis], "p1_round_launch", *ptrs,
                    nB.data_ptr(), nC.data_ptr(), nD.data_ptr(),
                    neq.data_ptr(), P, Q, X, axis, int(n_half), int(bind),
                    r.data_ptr(), part.data_ptr(), out.data_ptr(),
                    kernels.stream(B))
     if not bind:
         return out, None
-    eqs = list(tabs[:3])
+    eqs = tabs[:3]
     eqs[axis] = neq
     return out, (*eqs, nB, nC, nD)
 
@@ -248,7 +303,7 @@ def p1_evals(tp, tq, tx, B, C, D, n_half: int, mode: int):
 def p1_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
             mode_prev: int, mode: int):
     """The previous round's bind fused with this round's evaluations;
-    returns (evals, tables)."""
+    returns (evals, tables), the bound axis at its new live length."""
     if B.device.type == "cpu":
         return p1_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev,
                              n_half, mode_prev, mode)
@@ -257,7 +312,8 @@ def p1_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
         # the same axis (a no-op on the prover's tables)
         return _p1_launch(*_p1_compact(tp, tq, tx, B, C, D, mode),
                           int(n_half), mode, r_prev, int(n_half_prev))
-    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev)
+    tabs = p1_bind(tp, tq, tx, B, C, D, r_prev, n_half_prev, mode_prev,
+                   int(n_half_prev))
     tabs = _p1_compact(*tabs, mode)
     return p1_evals(*tabs, n_half, mode), tabs
 
@@ -266,9 +322,6 @@ def _p2_launch(ep, ABC, Z, n_half, mode, single_inst, r=None,
                n_half_prev=None):
     axis = _P2_AXIS[mode]
     bind = r is not None
-    if bind and 2 * n_half != n_half_prev:
-        raise ValueError("fused step binds the same axis: n_half_prev "
-                         "must be 2 * n_half")
     P, Wn, Y = Z.shape[:3]
     PB = ABC.shape[0]
     if ABC.shape[1:] != Z.shape[1:] or PB not in (1, P) or \
@@ -277,13 +330,18 @@ def _p2_launch(ep, ABC, Z, n_half, mode, single_inst, r=None,
     tabs = [t.contiguous() for t in (ep, ABC, Z)]
     r = r.reshape(16).contiguous() if bind else tabs[0]
     kernels.require_cuda(*tabs, r)
+    ptrs = _k4_prep(tabs, (P, Wn, Y)[axis], n_half, bind, n_half_prev,
+                    max(P, PB) * Wn * Y)
     fold_a = not (axis == 0 and PB == 1)
-    nABC = torch.empty_like(tabs[1]) if bind and fold_a else tabs[1]
-    nZ = torch.empty_like(tabs[2]) if bind else tabs[2]
-    nep = torch.empty_like(tabs[0]) if bind and axis == 0 else tabs[0]
-    part, out = _scratch(P * Wn * Y, Z.device)
-    kernels.launch(_P2_COUNTER[axis], "p2_round_launch",
-                   *(t.data_ptr() for t in tabs), nABC.data_ptr(),
+    nZ = _new_table(tabs[2], axis, 2 * n_half) if bind else tabs[2]
+    nABC = _new_table(tabs[1], axis, 2 * n_half) if bind and fold_a \
+        else tabs[1]
+    nep = _new_table(tabs[0], 0, 2 * n_half) if bind and axis == 0 \
+        else tabs[0]
+    out, part = _k4_scratch(P * Wn * Y // (P, Wn, Y)[axis] * n_half,
+                            Z.device)
+    kernels.launch(_P2_COUNTER[axis], "p2_round_launch", *ptrs,
+                   nABC.data_ptr(),
                    nZ.data_ptr(), nep.data_ptr(), P, PB, Wn, Y, axis,
                    int(n_half), int(bind), r.data_ptr(), part.data_ptr(),
                    out.data_ptr(), kernels.stream(Z))
@@ -304,7 +362,8 @@ def p2_step(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
     if mode_prev == mode:
         return _p2_launch(*_p2_compact(ep, ABC, Z, mode), int(n_half), mode,
                           single_inst, r_prev, int(n_half_prev))
-    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst)
+    tabs = p2_bind(ep, ABC, Z, r_prev, n_half_prev, mode_prev, single_inst,
+                   int(n_half_prev))
     tabs = _p2_compact(*tabs, mode)
     return p2_evals(*tabs, n_half, mode, single_inst), tabs
 

@@ -102,6 +102,19 @@ def test_eq_table_and_bound_match_jax():
     assert int(jp.evaluate(r)) == int(tp.evaluate(r))
 
 
+@pytest.mark.parametrize("ell", [0, 1, 7, 13, 14])
+def test_eq_table_matches_jax(ell):
+    """The port's eq table (eq_evals' plain version, the CPU path of
+    csrc/fq.cu k_eq_evals) against JAX EqPolynomial.evals_dev: the
+    doubling build up to 2^13 entries and the half-table product above;
+    challenges include 0, 1 and l - 1."""
+    from spartan_parallel_tpu.core.field import Scalar
+
+    r = [Scalar(x) for x in rand_mod(ell)[::-1]]
+    assert same(jdm.EqPolynomial(r).evals_dev(),
+                tdm.EqPolynomial(r).evals_dev("cpu"))
+
+
 def test_poly_eval_proof_matches_jax():
     """The single Hyrax opening (PolyEvalProof.prove/verify) on the same
     polynomial, point and tape: the commitment, the committed evaluation

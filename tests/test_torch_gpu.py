@@ -124,6 +124,116 @@ def test_sumcheck_kernels(dev):
                 sck.p2_evals_plain(ep, ABC, Z, 1, mode, single))
 
 
+def test_eq_kernel(dev):
+    """K1's eq table (csrc/fq.cu k_eq_evals: one launch a call for ell >=
+    1, none for ell = 0) against its plain version for ell = 0 ... 20,
+    the challenges 0, 1 and l - 1 among random ones."""
+    from spartan_parallel_tpu_torch.models.dense_mlpoly import (
+        eq_evals, eq_evals_plain,
+    )
+    from spartan_parallel_tpu_torch.ops import kernels
+
+    edge = torch.from_numpy(fq.encode([0, 1, L - 1])).to(dev)
+    for ell in range(21):
+        rs = rand_field((ell,), dev, 200 + ell)
+        for i, j in enumerate((0, ell // 2, ell - 1)):
+            if 0 <= j < ell:
+                rs[j] = edge[i]
+        before = kernels.launches.get("eq_evals", 0)
+        got = eq_evals(rs, ell)
+        assert kernels.launches.get("eq_evals", 0) - before == min(ell, 1)
+        assert torch.equal(got, eq_evals_plain(rs, ell)), ell
+
+
+def _whole_sumcheck(first, step, modes, live, rs):
+    """Every round of a sumcheck: the first round's evaluations, then the
+    fused steps down to n_half = 1; (evaluations, the pending bind)."""
+    evs, pending = [], None
+    for j, mode in enumerate(modes):
+        nh = live[mode] // 2
+        evs.append(first(nh, mode) if pending is None
+                   else step(*pending, nh, mode))
+        pending = (rs[j], nh, mode)
+        live[mode] //= 2
+    return torch.stack(evs), pending
+
+
+def _log2(n):
+    return n.bit_length() - 1
+
+
+@pytest.mark.parametrize("P,Q,X", [(1, 1, 1 << 14), (4, 8, 16)])
+def test_phase1_whole_sumcheck_kernel(dev, P, Q, X):
+    """K4 across a whole phase-1 sumcheck (x, then q, then p rounds) at
+    the NIZK's shape and at the data-parallel shape P = 4, against the
+    plain steps on the same card tensors: every round's evaluations, the
+    tables after the last step and after the final bind."""
+    tabs0 = [rand_field((n,), dev, 300 + i) for i, n in enumerate((P, Q, X))]
+    tabs0 += [rand_field((P, Q, X), dev, 303 + i) for i in range(3)]
+    modes = [sck.MODE_X] * _log2(X) + [sck.MODE_Q] * _log2(Q) + \
+        [sck.MODE_P] * _log2(P)
+    rs = rand_field((len(modes),), dev, 310)
+    got = []
+    for evals, step in ((sck.p1_evals, sck.p1_step),
+                        (sck.p1_evals_plain, sck.p1_step_plain)):
+        tabs = list(tabs0)
+
+        def first(nh, mode):
+            return evals(*tabs, nh, mode)
+
+        def stp(r, nh_prev, mode_prev, nh, mode):
+            ev, tabs[:] = step(*tabs, r, nh_prev, nh, mode_prev, mode)
+            return ev
+
+        evs, (r, nh, mode) = _whole_sumcheck(
+            first, stp, modes, {sck.MODE_X: X, sck.MODE_Q: Q, sck.MODE_P: P},
+            rs)
+        final = sck.p1_bind(*(t.cpu() for t in tabs), r.cpu(), nh, mode,
+                            out_len=nh)
+        got.append((evs, tabs, final))
+    (e1, t1, f1), (e2, t2, f2) = got
+    assert torch.equal(e1, e2)
+    assert all(torch.equal(a, b) for a, b in zip(t1, t2))
+    assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+
+
+@pytest.mark.parametrize("P,W,Y,single", [(1, 2, 1 << 14, True),
+                                          (4, 2, 16, False)])
+def test_phase2_whole_sumcheck_kernel(dev, P, W, Y, single):
+    """K4 across a whole phase-2 sumcheck (y, then w, then p rounds) at
+    the NIZK's shape (one shared ABC) and at P = 4 (an ABC per instance),
+    against the plain steps, as in phase 1."""
+    tabs0 = [rand_field((P,), dev, 320),
+             rand_field((1 if single else P, W, Y), dev, 321),
+             rand_field((P, W, Y), dev, 322)]
+    modes = [sck.MODE_X] * _log2(Y) + [sck.MODE_W] * _log2(W) + \
+        [sck.MODE_P] * _log2(P)
+    rs = rand_field((len(modes),), dev, 330)
+    got = []
+    for evals, step in ((sck.p2_evals, sck.p2_step),
+                        (sck.p2_evals_plain, sck.p2_step_plain)):
+        tabs = list(tabs0)
+
+        def first(nh, mode):
+            return evals(*tabs, nh, mode, single)
+
+        def stp(r, nh_prev, mode_prev, nh, mode):
+            ev, tabs[:] = step(*tabs, r, nh_prev, nh, mode_prev, mode,
+                               single)
+            return ev
+
+        evs, (r, nh, mode) = _whole_sumcheck(
+            first, stp, modes, {sck.MODE_X: Y, sck.MODE_W: W, sck.MODE_P: P},
+            rs)
+        final = sck.p2_bind(*(t.cpu() for t in tabs), r.cpu(), nh, mode,
+                            single, out_len=nh)
+        got.append((evs, tabs, final))
+    (e1, t1, f1), (e2, t2, f2) = got
+    assert torch.equal(e1, e2)
+    assert all(torch.equal(a, b) for a, b in zip(t1, t2))
+    assert all(torch.equal(a, b) for a, b in zip(f1, f2))
+
+
 def test_sumcheck_dp_modes(dev):
     """K4 in the q and p rounds of phase 1 and the w and p rounds of
     phase 2 with one ABC table per instance (fused steps included)."""

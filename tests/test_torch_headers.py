@@ -1,5 +1,5 @@
 """The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh, fe.cuh,
-curve.cuh), K2's signed digits, cached points and bucket combination
+curve.cuh), K1's eq table split into chunks (csrc/eq.cuh), K2's signed digits, cached points and bucket combination
 (csrc/msm.cuh, host_check.cpp), the lane-split point operations and the
 fold (csrc/lanes.cuh), and the device round's transcript, encoding, comb
 commitment and tail (csrc/keccak.cuh, ristretto.cuh, zk_round.cuh) built
@@ -67,6 +67,7 @@ def lib(tmp_path_factory):
     lib.host_compress.argtypes = [vp, vp, n]
     lib.host_comb.argtypes = [vp, n, vp, vp, n, n]
     lib.host_zk_round_tail.argtypes = [vp, n, vp, vp, vp, vp, vp, vp]
+    lib.host_eq_evals.argtypes = [vp, ctypes.c_int, vp]
     return lib
 
 
@@ -433,3 +434,18 @@ def test_round_tail(lib):
                       torch.from_numpy(tab_n), torch.from_numpy(tab_1))
     for got, want in zip((st, carry, out), bufs):
         assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("ell", [0, 1, 5, 11, 14])
+def test_eq_table_chunks(lib, ell):
+    """K1's eq table as k_eq_evals builds it (csrc/eq.cuh: chunks of 2^10
+    entries, each chunk's high factor by the lane tree, then the doubling
+    levels in place) against eq_evals' plain version, limb for limb; the
+    challenges include 0, 1 and l - 1."""
+    from spartan_parallel_tpu_torch.models.dense_mlpoly import eq_evals_plain
+
+    rs = fq.encode(rand_mod(L, max(ell, 5))[:ell][::-1]).reshape(ell, 16)
+    out = np.zeros((1 << ell, 16), dtype=np.int32)
+    lib.host_eq_evals(ptr(np.ascontiguousarray(rs)), ell, ptr(out))
+    want = eq_evals_plain(torch.from_numpy(rs), ell)
+    assert np.array_equal(out, want.numpy())

@@ -1,7 +1,11 @@
 """K4 (sumcheck round kernels): the port's plain path against the JAX
-package's ops/sumcheck.py p1_* / p2_* on the same fixed-size buffers,
-for every mode, including the live-length (n_half) semantics and the
-compaction at a mode change. Tolerance: exact equality."""
+package's ops/sumcheck.py p1_* / p2_* on the same inputs, for every mode,
+including the live-length (n_half) semantics and the compaction at a mode
+change. The JAX steps keep fixed-size buffers; the port's steps return
+tables of the new live length along the bound axis, so their tables are
+held against the JAX buffers' live region, and the JAX dead region must
+be all zero: nothing of the JAX tables goes unchecked. Whole sumchecks
+run round by round on both. Tolerance: exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,24 @@ def all_same(js, ts):
     return len(js) == len(ts) and all(same(a, b) for a, b in zip(js, ts))
 
 
+def live_same(j, t):
+    """The port's table equals the JAX buffer's live region (its leading
+    entries along each axis), and the rest of the buffer is zero."""
+    j = np.asarray(j).astype(np.int64)
+    live = tuple(slice(0, n) for n in t.shape)
+    if any(a < b for a, b in zip(j.shape, t.shape)) or \
+            not np.array_equal(j[live], t.numpy().astype(np.int64)):
+        return False
+    dead = j.copy()
+    dead[live] = 0
+    return not dead.any()
+
+
+def all_live_same(js, ts):
+    return len(js) == len(ts) and all(live_same(a, b)
+                                      for a, b in zip(js, ts))
+
+
 P1 = [(jsck.MODE_X, jsck.MODE_X, 2, 1), (jsck.MODE_X, jsck.MODE_Q, 1, 1),
       (jsck.MODE_Q, jsck.MODE_P, 1, 1)]
 
@@ -55,9 +77,10 @@ def test_phase1_round_matches_jax(mode_prev, mode, nh_prev, nh):
     tev, ttabs = tsck.p1_step(*ts, r[1][0], nh_prev, nh,
                               mode_prev=mode_prev, mode=mode)
     assert same(jev, tev)
-    assert all_same(jtabs, ttabs)
-    assert all_same(jsck.p1_bind(*jtabs, r[0][0], np.uint32(nh), mode=mode),
-                    tsck.p1_bind(*ttabs, r[1][0], nh, mode=mode))
+    assert all_live_same(jtabs, ttabs)
+    assert all_live_same(
+        jsck.p1_bind(*jtabs, r[0][0], np.uint32(nh), mode=mode),
+        tsck.p1_bind(*ttabs, r[1][0], nh, mode=mode))
 
 
 P2 = [(jsck.MODE_X, jsck.MODE_X, 2, 1, False),
@@ -88,11 +111,101 @@ def test_phase2_round_matches_jax(mode_prev, mode, nh_prev, nh, single):
                               mode_prev=mode_prev, mode=mode,
                               single_inst=single)
     assert same(jev, tev)
-    assert all_same(jtabs, ttabs)
-    assert all_same(jsck.p2_bind(*jtabs, r[0][0], np.uint32(nh), mode=mode,
-                                 single_inst=single),
-                    tsck.p2_bind(*ttabs, r[1][0], nh, mode=mode,
-                                 single_inst=single))
+    assert all_live_same(jtabs, ttabs)
+    assert all_live_same(jsck.p2_bind(*jtabs, r[0][0], np.uint32(nh),
+                                      mode=mode, single_inst=single),
+                         tsck.p2_bind(*ttabs, r[1][0], nh, mode=mode,
+                                      single_inst=single))
+
+
+def _whole(first, step, final, modes, live, compare):
+    """A whole sumcheck on both packages: the first round's evaluations,
+    then every fused step down to n_half = 1, then the final bind; the
+    evaluations and the tables held after each round."""
+    pending = None
+    for mode in modes:
+        nh = live[mode] // 2
+        if pending is None:
+            jev, tev = first(nh, mode)
+        else:
+            jev, tev = step(*pending, nh, mode)
+        assert same(jev, tev)
+        compare()
+        pending = (tab(1), nh, mode)
+        live[mode] //= 2
+    final(*pending)
+    compare()
+
+
+def test_phase1_whole_sumcheck_matches_jax():
+    """Phase 1 at (P, Q, X) = (2, 2, 4) (the round tests' shapes, whose
+    JAX compiles it shares): two x rounds, one q round, one p round, each
+    step against JAX p1_step, then the final bind."""
+    M = jsck
+    tabs = [tab(2), tab(2), tab(4), tab(2, 2, 4), tab(2, 2, 4),
+            tab(2, 2, 4)]
+    js, ts = [t[0] for t in tabs], [t[1] for t in tabs]
+
+    def first(nh, mode):
+        return (jsck.p1_evals(*js, np.uint32(nh), mode=mode),
+                tsck.p1_evals(*ts, nh, mode=mode))
+
+    def step(r, nh_prev, mode_prev, nh, mode):
+        jev, js[:] = jsck.p1_step(*js, r[0][0], np.uint32(nh_prev),
+                                  np.uint32(nh), mode_prev=mode_prev,
+                                  mode=mode)
+        tev, ts[:] = tsck.p1_step(*ts, r[1][0], nh_prev, nh,
+                                  mode_prev=mode_prev, mode=mode)
+        return jev, tev
+
+    def final(r, nh, mode):
+        js[:] = jsck.p1_bind(*js, r[0][0], np.uint32(nh), mode=mode)
+        ts[:] = tsck.p1_bind(*ts, r[1][0], nh, mode=mode, out_len=nh)
+
+    def compare():
+        assert all_live_same(js, ts)
+
+    _whole(first, step, final, [M.MODE_X] * 2 + [M.MODE_Q, M.MODE_P],
+           {M.MODE_X: 4, M.MODE_Q: 2, M.MODE_P: 2}, compare)
+    assert all(t.shape[:-1] == (1,) * (t.dim() - 1) for t in ts)
+
+
+def test_phase2_whole_sumcheck_matches_jax():
+    """Phase 2 at (P, W, Y) = (2, 2, 4) (the round tests' shapes), one ABC
+    table per instance: two y rounds, one w round, one p round, each step
+    against JAX p2_step, then the final bind (a shared ABC's steps: the
+    round tests)."""
+    M = jsck
+    single = False
+    tabs = [tab(2), tab(1 if single else 2, 2, 4), tab(2, 2, 4)]
+    js, ts = [t[0] for t in tabs], [t[1] for t in tabs]
+
+    def first(nh, mode):
+        return (jsck.p2_evals(*js, np.uint32(nh), mode=mode,
+                              single_inst=single),
+                tsck.p2_evals(*ts, nh, mode=mode, single_inst=single))
+
+    def step(r, nh_prev, mode_prev, nh, mode):
+        jev, js[:] = jsck.p2_step(*js, r[0][0], np.uint32(nh_prev),
+                                  np.uint32(nh), mode_prev=mode_prev,
+                                  mode=mode, single_inst=single)
+        tev, ts[:] = tsck.p2_step(*ts, r[1][0], nh_prev, nh,
+                                  mode_prev=mode_prev, mode=mode,
+                                  single_inst=single)
+        return jev, tev
+
+    def final(r, nh, mode):
+        js[:] = jsck.p2_bind(*js, r[0][0], np.uint32(nh), mode=mode,
+                             single_inst=single)
+        ts[:] = tsck.p2_bind(*ts, r[1][0], nh, mode=mode,
+                             single_inst=single, out_len=nh)
+
+    def compare():
+        assert all_live_same(js, ts)
+
+    _whole(first, step, final, [M.MODE_X] * 2 + [M.MODE_W, M.MODE_P],
+           {M.MODE_X: 4, M.MODE_W: 2, M.MODE_P: 2}, compare)
+    assert ts[2].shape[:-1] == (1, 1, 1)
 
 
 def test_rev_perm_matches_jax():
