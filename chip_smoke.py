@@ -17,9 +17,11 @@ Phases, each printing one JSON line:
      `sc_p1_rounds`, `sc_p2_rounds`), and the data-parallel proof's (K4's
      x, q, w and p rounds, K5's
      class rounds, eq_fold, pc_bind, the ABC combination) at the shapes of
-     the runs of phases 5 and 6, and SPARK's (K6's product-tree layer and
-     cubic rounds, the pt_fold bind, the hash layer) at the shapes of the
-     2^20 SNARK of phase 7;
+     the runs of phases 5 and 6, and SPARK's (K6's tree kernel over the
+     whole stack of ops trees and its first launch alone, its round kernel
+     as a layer's first round, a bound round and a layer's last bind, with
+     and without the dot-product stack, the hash layer) at the shapes of
+     the 2^20 SNARK of phase 7;
   3. fixed tapes, proved on the card and on the CPU, whose serialized
      proofs must be identical and verify: the NIZK at 2^10 constraints x
      2^10 variables x 10 inputs (a tampered proof must fail), and the
@@ -37,11 +39,16 @@ Phases, each printing one JSON line:
      reject a tampered proof, with the same report;
   6. the same with uniform counts [256] x 4 (the dense prover);
   7. the upstream single-instance SNARK with SPARK on the card, encode ->
-     prove -> verify, at BASELINE config 2 (2^16 x 2^16 x 10 inputs) and
-     at the upstream README instance (2^20 x 2^20 x 10 inputs, 2^20
-     non-zeros per matrix): upstream's stage Timers, the SAT and eval
-     proof bytes beside upstream's, peak memory, launches, and a proof
-     with one claimed evaluation changed must be rejected;
+     prove -> verify under a fixed tape, at BASELINE config 2 (2^16 x 2^16
+     x 10 inputs) and at the upstream README instance (2^20 x 2^20 x 10
+     inputs, 2^20 non-zeros per matrix): upstream's stage Timers, the SAT
+     and eval proof bytes beside upstream's, the proof's sha256, peak
+     memory, launches, and a proof with one claimed evaluation changed
+     must be rejected; the 2^20 SNARK is proved a second time, traced,
+     and its launches must show K6 as designed (`product_layers`: one
+     pt_round launch a product-layer round, one pt_fold a layer with
+     rounds, no launch under a circuit's evaluate, at most 3 for the
+     dot-product circuits' evaluations);
   8. the 9-stage data-parallel SNARK at the find_min shape of BASELINE.md
      section B (examples.build_synthetic_zkvm: 9 blocks of 8,192
      constraints executed 64/16/16/16/4/4/4/2/2 times), not cut: set-up
@@ -73,16 +80,17 @@ and the first design's beside it; a line before phase 2 gives msm.cu's
 ptxas registers, spills and shared memory and the window kernel's blocks
 an SM, `ptxas_zk` the same for K8-K11 and k_fold with the stack
 frames of the functions they call (K11 may keep at most K11_STACK_MAX
-bytes), and `ptxas_k4` for K4's twelve instances and K1's eq kernel.
-Phases 4, 5, 6 and 8 time their proves untraced, then prove the same
+bytes), `ptxas_k4` for K4's twelve instances and K1's eq kernel, and
+`ptxas_k6` for K6's round, bind and tree kernels.
+Phases 4, 5, 6, 7 (2^20) and 8 time their proves untraced, then prove the same
 tape once more under kernel_trace, whose CUDA events time every launch:
 the lines give that run's prove seconds (`traced_prove_s`, the events'
 cost beside `prove_s`), K2's, K11's and fold_points' launches and ms
 inside its witness commits and proves (`k2`, `k11`, `fold`), every
 kernel's, summed over its launches (`by_kernel`), and every caller's
 (`by_caller`: a launch under the counter its wrapper counted it under
-too, K1's eq_fold, pc_bind, pt_fold, hash_poly, rlc_eval, abc_comb, or
-else under the first function outside ops/ that made it).
+too, K1's eq_fold, pc_bind, hash_poly, rlc_eval, abc_comb, dotp_eval,
+or else under the first function outside ops/ that made it).
 Phase 2 starts with `fp_chain`: csrc/fp_chain.cu runs a 4096-step
 dependent chain of field products on one warp for fp.cuh's product as
 K9-K11 called it, inlined, fe.cuh's product and squaring, fp10.cuh's
@@ -395,7 +403,7 @@ class KernelTrace:
     by CUDA events, with the stage Timers (utils/timer.py) open around it;
     K2's (rows, points), K11's table sets and fold_points' pairs as its
     shape; and its caller: the counter its wrapper counted it under too
-    (K1's callers eq_fold, pc_bind, pt_fold, hash_poly, rlc_eval,
+    (K1's callers eq_fold, pc_bind, hash_poly, rlc_eval, dotp_eval,
     abc_comb, ...: the `counter=` of ops/fq.py) or, with none, the first
     function outside ops/ on the stack ("@file:function"). The events
     cost each launch two records on the stream: time the path in a run
@@ -1062,52 +1070,103 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
 def check_spark_kernels(log_n: int, dev, gen, record, E):
     """SPARK's kernels at the shapes of the 2^log_n SNARK of phase 7 (the
     upstream instance at log_n = 20): 12 ops circuits of 2^log_n leaves
-    (their first layer and first round at n = 2^(log_n - 1) per half), 6
-    dot-product circuits of 2^(log_n - 1), 4 memory circuits of
-    2^(log_n + 1) cells (first round at n = 2^log_n). Bytes: each input
-    read once, each output written once; operations: the field products
-    (6 per pair for a cubic round's e0, e2, e3)."""
+    (their first layer's tables (12, 2^(log_n - 1)) with one shared eq
+    table, and the 6 dot-product circuits' (6, 2^(log_n - 1)) beside them)
+    and 4 memory circuits of 2^(log_n + 1) cells (tables (4, 2^log_n)).
+    K6's round kernel as the path launches it: a layer's first round
+    (evaluations only: pt_cubic_round*), a bound round (pt_round*) and a
+    layer's last bind (pt_fold, tables of 2); its tree kernel over the
+    whole stack of ops trees (pt_tree) and its first launch alone
+    (pt_layer_mul: the first layers of the stack). Bytes: each input read
+    once, each output written once; operations: the field products (6 a
+    pair and instance for a round's e0, e2, e3, one a bound entry, one a
+    tree node)."""
+    import torch
+
     from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
     from spartan_parallel_tpu_torch.ops import product as pk
 
     src = "spartan_parallel_tpu/models/product_tree.py"
-    h = 1 << (log_n - 2)
-    n = 2 * h
+    n = 1 << (log_n - 1)
 
-    def pair_err(got, want):
-        return max(field_err(g, w) for g, w in zip(got, want))
+    def tab_err(got, want):
+        if got is None or want is None:
+            return 0 if got is want else 1 << 16
+        if not isinstance(got, (list, tuple)):
+            return field_err(got, want)
+        return max(tab_err(g, w) for g, w in zip(got, want))
 
-    left, right = (rand_field((12, n), gen, dev) for _ in range(2))
-    record("pt_layer_mul", "product.cu", f"{src}:42",
-           lambda: pk.layer_mul(left, right),
-           lambda: pk.layer_mul_plain(left, right), pair_err,
-           3 * 12 * n * E, 12 * n * IMAD_FQ_MUL, path="snark")
-    C = rand_field((n,), gen, dev)
-    record("pt_cubic_round", "product.cu", f"{src}:102",
-           lambda: pk.cubic_evals(left, right, C),
-           lambda: pk.cubic_evals_plain(left, right, C), field_err,
-           (2 * 12 * n + n + 12 * 3) * E, 6 * 12 * h * IMAD_FQ_MUL,
-           path="snark")
+    leaves = rand_field((12, 2 * n), gen, dev)
+    plan = pk.tree_plan(2 * n)
+    record("pt_tree", "product.cu", f"{src}:42",
+           lambda: pk.pt_tree(leaves), lambda: pk.pt_tree_plain(leaves),
+           tab_err, (12 * 2 * n + 12 * (2 * n - 1)) * E,
+           12 * (2 * n - 1) * IMAD_FQ_MUL, path="snark",
+           extra={"leaves": [12, 2 * n], "layers_a_launch": plan,
+                  "launches_a_call": len(plan)})
+    m = plan[0]
+    written = 12 * (2 * n - (2 * n >> m))
+    out = torch.empty((written, 16), dtype=torch.int32, device=dev)
+
+    def first_layers_plain():
+        layers = [leaves]
+        for _ in range(m):
+            layers.append(torch.cat(pk.layer_mul_plain(
+                *torch.chunk(layers[-1], 2, 1)), 1))
+        return torch.cat([t.reshape(-1, 16) for t in layers[1:]])
+
+    def first_layers():
+        pk.tree_step(leaves, out, m)
+        return out
+
+    record("pt_layer_mul", "product.cu", f"{src}:42", first_layers,
+           first_layers_plain, field_err, (12 * 2 * n + written) * E,
+           written * IMAD_FQ_MUL, path="snark", counter="pt_tree",
+           extra={"leaves": [12, 2 * n], "layers": m})
+    del out
+    check_k6_choices(n, dev, gen, leaves)
+    del leaves
+
+    def rows(name, rows_, len_, seq_rows, bind, replaces):
+        """A round (bind: a bound round) at (rows_, len_) with one shared
+        C and seq_rows dot-product rows."""
+        A, B = (rand_field((rows_, len_), gen, dev) for _ in range(2))
+        C = rand_field((len_,), gen, dev)
+        seq = tuple(rand_field((seq_rows, len_), gen, dev)
+                    for _ in range(3)) if seq_rows else None
+        coef = rand_field((rows_ + seq_rows,), gen, dev)
+        r = rand_field((), gen, dev) if bind else None
+        tables = 2 * rows_ + 1 + 3 * seq_rows
+        pairs = (rows_ + seq_rows) * len_ // (4 if bind else 2)
+        nbytes = (tables * len_ + (rows_ + seq_rows) + 3) * E
+        muls = 6 * pairs
+        if bind:
+            nbytes += tables * len_ // 2 * E
+            muls += tables * len_ // 2
+        record(name, "product.cu", replaces,
+               lambda: pk.pt_round(A, B, C, coef, r, seq),
+               lambda: pk.pt_round_plain(A, B, C, coef, r, seq), tab_err,
+               nbytes, muls * IMAD_FQ_MUL, path="snark", counter="pt_round",
+               extra={"shape": [rows_, len_], "dot_product_rows": seq_rows,
+                      "bound_first": bind})
+
+    rows("pt_cubic_round", 12, n, 0, False, f"{src}:102")
+    rows("pt_cubic_round_seq", 12, n, 6, False, f"{src}:119")
+    rows("pt_cubic_round_mem", 4, 2 * n, 0, False, f"{src}:102")
+    rows("pt_round", 12, n, 0, True, f"{src}:141")
+    rows("pt_round_seq", 12, n, 6, True, f"{src}:141")
+    rows("pt_round_mem", 4, 2 * n, 0, True, f"{src}:141")
+    # the last bind of the ops proof's first layer: tables of 2
+    A, B = (rand_field((12, 2), gen, dev) for _ in range(2))
+    C = rand_field((2,), gen, dev)
+    seq = tuple(rand_field((6, 2), gen, dev) for _ in range(3))
     r = rand_field((), gen, dev)
-    record("pt_fold", "fq.cu", f"{src}:136",
-           lambda: pk.fold(left, r), lambda: pk.fold_plain(left, r),
-           field_err, (12 * n + 12 * h + 1) * E, 12 * h * IMAD_FQ_MUL,
-           path="snark")
-    del left, right
-    A, B, Cs = (rand_field((6, n), gen, dev) for _ in range(3))
-    record("pt_cubic_round_seq", "product.cu", f"{src}:119",
-           lambda: pk.cubic_evals(A, B, Cs),
-           lambda: pk.cubic_evals_plain(A, B, Cs), field_err,
-           (3 * 6 * n + 6 * 3) * E, 6 * 6 * h * IMAD_FQ_MUL, path="snark")
-    del A, B, Cs
-    A, B = (rand_field((4, 2 * n), gen, dev) for _ in range(2))
-    C = rand_field((2 * n,), gen, dev)
-    record("pt_cubic_round_mem", "product.cu", f"{src}:102",
-           lambda: pk.cubic_evals(A, B, C),
-           lambda: pk.cubic_evals_plain(A, B, C), field_err,
-           (2 * 4 * 2 * n + 2 * n + 4 * 3) * E, 6 * 4 * n * IMAD_FQ_MUL,
-           path="snark", counter="pt_cubic_round")
-    del A, B, C
+    tables = 2 * 12 + 1 + 3 * 6
+    record("pt_fold", "product.cu", f"{src}:136",
+           lambda: pk.pt_fold(A, B, C, r, seq),
+           lambda: pk.pt_fold_plain(A, B, C, r, seq), field_err,
+           (3 * tables + 1) * E, tables * IMAD_FQ_MUL, path="snark",
+           extra={"shape": [12, 2], "dot_product_rows": 6})
     # the hash layer of 2^20 read timestamps: ts r^2 + val r + addr - rm
     addr, val, ts = (rand_field((2 * n,), gen, dev) for _ in range(3))
     ch = rand_field((3,), gen, dev)
@@ -1116,6 +1175,55 @@ def check_spark_kernels(log_n: int, dev, gen, record, E):
            lambda: sp._hash_poly(addr, val, ts, *ch),
            lambda: hash_poly_plain(addr, val, ts, *ch), field_err,
            (4 * 2 * n + 3) * E, 2 * 2 * n * IMAD_FQ_MUL, path="snark")
+
+
+def check_k6_choices(n: int, dev, gen, leaves):
+    """The measurements behind two of K6's fixed choices, on the card:
+    a first tree launch building 1 ... 4 layers of the 12 x 2n leaves
+    (ms, and ms a layer: ops/product.py _PT_MAX_PASS), and a bound round
+    at (12, n) and at (12, 2^10) with one shared C, with the product rows
+    a work item takes (G) at 1 and at all 12 (ops/product.py _PT_ITEMS).
+    Each launch held exactly against its plain version."""
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import product as pk
+
+    out = {"phase": "k6_choices", "tree_first_launch": {},
+           "bound_round": {}}
+    plain = [leaves]
+    for m in range(1, pk._PT_MAX_PASS + 1):
+        plain.append(torch.cat(pk.layer_mul_plain(
+            *torch.chunk(plain[-1], 2, 1)), 1))
+        buf = torch.empty((12 * (2 * n - (2 * n >> m)), 16),
+                          dtype=torch.int32, device=dev)
+        pk.tree_step(leaves, buf, m)
+        if not torch.equal(buf, torch.cat([t.reshape(-1, 16)
+                                           for t in plain[1:]])):
+            raise AssertionError(f"tree launch of {m} layers disagrees")
+        ms = cuda_ms(lambda: pk.tree_step(leaves, buf, m), REPS)
+        out["tree_first_launch"][m] = {"ms": ms, "ms_a_layer": ms / m}
+    del plain, buf
+    items = pk._PT_ITEMS
+    try:
+        for length in (n, 1 << 10):
+            A, B = (rand_field((12, length), gen, dev) for _ in range(2))
+            C = rand_field((length,), gen, dev)
+            coef = rand_field((12,), gen, dev)
+            r = rand_field((), gen, dev)
+            want = pk.pt_round_plain(A, B, C, coef, r)
+            row = out["bound_round"][f"12x{length}"] = {}
+            for G, target in ((1, 1 << 62), (12, 1)):
+                pk._PT_ITEMS = target
+                got = pk.pt_round(A, B, C, coef, r)
+                if field_err(got[0], want[0]) or any(
+                        field_err(g, w) for g, w in zip(got[1][:3],
+                                                        want[1][:3])):
+                    raise AssertionError(f"pt_round at G = {G} disagrees")
+                row[f"G{G}_ms"] = cuda_ms(
+                    lambda: pk.pt_round(A, B, C, coef, r), REPS)
+    finally:
+        pk._PT_ITEMS = items
+    emit(out)
 
 
 def check_uni_kernels(dev, gen, record, E):
@@ -1684,6 +1792,58 @@ def zk_rounds(obj, seen=None) -> int:
                if hasattr(obj, n))
 
 
+def product_proofs(obj, seen=None) -> list:
+    """The rounds of each layer of every batched product proof
+    (ProductCircuitEvalProofBatched) inside a proof, a list a proof."""
+    from spartan_parallel_tpu_torch.models.product_tree import (
+        ProductCircuitEvalProofBatched,
+    )
+
+    seen = set() if seen is None else seen
+    if id(obj) in seen or isinstance(obj, (bytes, bytearray, str, int)):
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, ProductCircuitEvalProofBatched):
+        return [[len(layer.proof.compressed_polys) for layer in obj.proof]]
+    if isinstance(obj, (list, tuple)):
+        return [p for x in obj for p in product_proofs(x, seen)]
+    if isinstance(obj, dict):
+        return [p for x in obj.values() for p in product_proofs(x, seen)]
+    names = list(getattr(obj, "__dict__", {}))
+    for cls in type(obj).__mro__:
+        names += list(getattr(cls, "__slots__", ()))
+    return [p for name in names if hasattr(obj, name)
+            for p in product_proofs(getattr(obj, name), seen)]
+
+
+# where a launch made by a circuit's evaluation would be traced from
+EVALUATE_SITES = ("@product_tree.py:evaluate", "@product_tree.py:value",
+                  "@product_tree.py:<lambda>")
+
+
+def spark_k6_launches(proof, counts: dict, tr) -> dict:
+    """K6 on a SPARK proof's path, from the launch counts: one pt_round
+    launch a product-layer round, one pt_fold a layer with rounds, no
+    launch under ProductCircuit.evaluate (the roots come from the tree
+    kernel) and at most 3 for the dot-product circuits' evaluations of
+    each SPARK proof (two batched product proofs: ops and memory)."""
+    proofs = product_proofs(proof)
+    layers = [n for p in proofs for n in p]
+    want = {"pt_round": sum(layers),
+            "pt_fold": sum(1 for n in layers if n)}
+    got = {k: counts.get(k, 0) for k in want}
+    evaluate = {c: v for c, v in tr.by_caller().items()
+                if c in EVALUATE_SITES}
+    dotp = counts.get("dotp_eval", 0)
+    if got != want or evaluate or dotp > 3 * (len(proofs) // 2):
+        raise AssertionError(f"K6 on the SPARK path: launches {got} for "
+                             f"{want}, under evaluate {evaluate}, "
+                             f"dot-product evaluations {dotp}")
+    return {"product_proofs": len(proofs), "layers": len(layers),
+            "rounds": sum(layers), **got, "dotp_eval": dotp,
+            "pt_tree": counts.get("pt_tree", 0)}
+
+
 def strict_round_loops(torch, stats):
     """Run every device-round loop (models/sumcheck.py _queue_rounds) on
     the card under torch.cuda.set_sync_debug_mode("error"): an operation
@@ -2212,6 +2372,10 @@ def main() -> int:
                           "k_eq_evals": ptxas_kernels(
                               built["fq"][1])["k_eq_evals"]}})
 
+    if "product" in built:
+        emit({"phase": "ptxas_k6", "card": card,
+              "kernels": ptxas_kernels(built["product"][1])})
+
     check_fp_chain(dev, card)
     rows, paths, record = check_kernels(LOG_KERNEL, dev, REPS)
 
@@ -2382,27 +2546,46 @@ def main() -> int:
                             ("prove", "R1CSProof::prove"),
                             ("prove_sc_phase_one", "prove_sc_phase_one")))})
         del run, again
-    # the upstream SNARK with SPARK: BASELINE config 2, then the upstream
-    # README instance, whose launches the K6 rows report
+    # the upstream SNARK with SPARK under a fixed tape: BASELINE config 2,
+    # then the upstream README instance, whose launches the K6 rows report
+    # and whose second, traced run gives the kernels' times
+    import hashlib
+
     for path, log_cons in (("snark16", 16), ("snark", 20)):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        run = snark_run(log_cons, 10, dev, seed_tape=False)
+        run = snark_run(log_cons, 10, dev, seed_tape=True)
         counts[path] = dict(kernels.launches)
+        mem = torch.cuda.max_memory_allocated()
         expect_reject_snark(run, dev)
-        emit({"phase": "snark", "log_cons": log_cons, "num_inputs": 10,
-              "nnz_per_matrix": 1 << log_cons, "card": card,
-              "setup_s": run["setup_s"],
-              "comb_tables_s": run["comb_tables_s"],
-              "encode_s": run["encode_s"],
-              "prove_s": run["prove_s"], "verify_s": run["verify_s"],
-              "stages_s": run["stages_s"],
-              "proof_bytes": run["proof_bytes"],
-              "proof_bytes_compressed": run["proof_bytes_compressed"],
-              "upstream_compressed_bytes_2_20": {
-                  "sat": 47024, "eval": 133720, "total": 141768},
-              "max_memory_allocated": torch.cuda.max_memory_allocated(),
-              "launches": counts[path], "tamper_rejected": True})
+        row = {"phase": "snark", "log_cons": log_cons, "num_inputs": 10,
+               "nnz_per_matrix": 1 << log_cons, "card": card,
+               "setup_s": run["setup_s"],
+               "comb_tables_s": run["comb_tables_s"],
+               "encode_s": run["encode_s"],
+               "prove_s": run["prove_s"], "verify_s": run["verify_s"],
+               "stages_s": run["stages_s"],
+               "proof_bytes": run["proof_bytes"],
+               "proof_bytes_compressed": run["proof_bytes_compressed"],
+               "upstream_compressed_bytes_2_20": {
+                   "sat": 47024, "eval": 133720, "total": 141768},
+               "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest(),
+               "max_memory_allocated": mem,
+               "launches": counts[path], "tamper_rejected": True}
+        if path == "snark":
+            raw = run["bytes"]
+            del run
+            with kernel_trace() as tr:
+                run = snark_run(log_cons, 10, dev, seed_tape=True)
+            if run["bytes"] != raw:
+                raise AssertionError("the traced SNARK differs")
+            row.update(traced_prove_s=run["prove_s"],
+                       product_layers=spark_k6_launches(
+                           ser.deserialize(raw, "SpartanSNARK"),
+                           counts[path], tr),
+                       **traced(tr, (("prove", "SNARK::prove"),
+                                     ("eval_proof", "R1CSEvalProof::prove"))))
+        emit(row)
         del run
     # the 9-stage SNARK at the find_min shape (BASELINE.md section B)
     torch.cuda.reset_peak_memory_stats()

@@ -12,22 +12,25 @@ at 2^20 x 2^20 x 10 inputs (chip_smoke.py phase 4), the data-parallel
 R1CSProof of BASELINE config 4 with skewed counts [512, 128, 32, 32]
 (phase 5: witness commit, then prove with device-resident rounds, then the
 same tape with the host round loop) and with uniform counts [256] x 4
-(phase 6, the dense prover, device rounds), and the 9-stage SNARK at the
-find_min shape (phase 8), each under its fixed tape, with every kernel
-launch timed by CUDA events (chip_smoke.kernel_trace). Every prove here
-is traced, in both trees and both forms alike, so its seconds carry the
-events' cost and compare only with each other (chip_smoke.py's `prove_s`
-are untraced). Prints one JSON line: the card, the tree, each prove's
-seconds, K2's, K11's and fold_points' launches and ms inside the prove
-and every kernel's (`by_kernel`, summed over its launches; K2 also inside
-the witness commits: NIZK `witness_commit`, config 4's commit, find_min
-`input_commit`) and every caller's (`by_caller`: each launch under the
-counter its wrapper counted it under too, e.g. K1's eq_fold, pt_fold,
-hash_poly, or else the first function outside ops/ that made it),
-config 4's phase-1 sumcheck seconds in both forms, each proof's sha256,
-and K2's bullet rows alone (1 x 514 ... 1 x 34, 50
-launches each: chip_smoke.py phase 2 times them too, but in one tree a
-call, and a comparison of two trees needs both on one card in one call).
+(phase 6, the dense prover, device rounds), the 9-stage SNARK at the
+find_min shape (phase 8) and the SNARK with SPARK at 2^20 x 2^20 x 10
+inputs (phase 7), each under its fixed tape, with every kernel launch
+timed by CUDA events (chip_smoke.kernel_trace). Every prove here is
+traced, in both trees and both forms alike, so its seconds carry the
+events' cost and compare only with each other (chip_smoke.py's
+`prove_s` are untraced). Prints one JSON line: the card, the tree, each
+prove's seconds and kernel launches, K2's, K11's and fold_points'
+launches and ms inside the prove and every kernel's (`by_kernel`,
+summed over its launches; K2 also inside the witness commits: NIZK
+`witness_commit`, config 4's commit, find_min `input_commit`; the
+SNARK's eval proof, `R1CSEvalProof::prove`, apart) and every caller's
+(`by_caller`: each launch under the counter its wrapper counted it
+under too, e.g. K1's eq_fold, hash_poly, dotp_eval, or else the first
+function outside ops/ that made it), config 4's phase-1 sumcheck
+seconds in both forms, each proof's sha256, and K2's bullet rows alone
+(1 x 514 ... 1 x 34, 50 launches each: chip_smoke.py phase 2 times them
+too, but in one tree a call, and a comparison of two trees needs both
+on one card in one call).
 Run two trees in turns (A, B, B, A) back to back on one card to compare
 them; the helpers come from this checkout's chip_smoke.py. Needs a CUDA
 card; imports nothing of JAX.
@@ -129,6 +132,17 @@ def main() -> int:
                       "proof_sha256": hashlib.sha256(
                           run["bytes"]).hexdigest()}
     del run
+    with cs.kernel_trace() as tr:
+        run = cs.snark_run(20, 10, dev, seed_tape=True)
+    out["snark"] = {"prove_s": run["prove_s"],
+                    "eval_proof_s": run["stages_s"]["R1CSEvalProof::prove"],
+                    **cs.traced(tr, (("prove", "SNARK::prove"),
+                                     ("eval_proof", "R1CSEvalProof::prove"))),
+                    "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest()}
+    del run
+    for cell in ("nizk", "dp_skewed", "dp_uniform", "findmin", "snark"):
+        out[cell]["launches"] = sum(
+            n for n, _ in out[cell]["by_kernel"]["prove"].values())
     # K2's bullet rows alone, at chip_smoke.py phase 2's shapes and points
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
     from spartan_parallel_tpu_torch.ops import msm

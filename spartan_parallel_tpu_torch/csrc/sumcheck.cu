@@ -43,11 +43,7 @@
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
-
-struct Tab {
-  const int32_t* src;
-  int32_t* dst;
-};
+#include "tables.cuh"
 
 // value of a table at pair index ii, bound to r when bind is set:
 // T[ii] + r (T[ii + nhp] - T[ii])
@@ -125,55 +121,6 @@ __device__ void finish_block(uint32_t* s0, uint32_t* s2, uint32_t* s3,
 // pairs; they are touched once a line
 typedef uint32_t K4Sums[3][8][K4_THREADS];
 
-// one element, 16 bytes at a time (4 limbs a load); the tables are 16-byte
-// aligned (ops/sumcheck.py checks)
-__device__ __forceinline__ void ld_el(uint32_t* v, const int32_t* p) {
-  const int4* q = reinterpret_cast<const int4*>(p);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int4 x = __ldg(q + k);
-    v[2 * k] = (uint32_t)x.x | ((uint32_t)x.y << 16);
-    v[2 * k + 1] = (uint32_t)x.z | ((uint32_t)x.w << 16);
-  }
-}
-
-__device__ __forceinline__ void st_el(int32_t* p, const uint32_t* v) {
-  int4* q = reinterpret_cast<int4*>(p);
-#pragma unroll
-  for (int k = 0; k < 4; ++k)
-    q[k] = make_int4((int)(v[2 * k] & 0xffffu), (int)(v[2 * k] >> 16),
-                     (int)(v[2 * k + 1] & 0xffffu),
-                     (int)(v[2 * k + 1] >> 16));
-}
-
-// entry idx of T; with BIND, bound to r: T[idx] + r (T[idx + step] - T[idx])
-template <bool BIND>
-__device__ __forceinline__ void k4_val(uint32_t* v, const int32_t* T,
-                                       size_t idx, size_t step,
-                                       const uint32_t* r) {
-  ld_el(v, T + 16 * idx);
-  if (BIND) {
-    uint32_t h[8];
-    ld_el(h, T + 16 * (idx + step));
-    fq_bind(v, v, h, r);
-  }
-}
-
-// the pair (lo, lo + half) of T.src; with BIND, bound to r from the pairs
-// (lo, lo + 2 half) and (lo + half, lo + 3 half) and stored to T.dst at
-// (out, out + half)
-template <bool BIND>
-__device__ __forceinline__ void k4_pair(uint32_t* vl, uint32_t* vh, Tab T,
-                                        size_t lo, size_t half, size_t out,
-                                        const uint32_t* r, bool store) {
-  k4_val<BIND>(vl, T.src, lo, 2 * half, r);
-  k4_val<BIND>(vh, T.src, lo + half, 2 * half, r);
-  if (BIND && store) {
-    st_el(T.dst + 16 * out, vl);
-    st_el(T.dst + 16 * (out + half), vh);
-  }
-}
-
 // x[t] = B_t C_t at t = 0, 2, 3 of the pairs (Bl, Bh), (Cl, Ch)
 __device__ __forceinline__ void k4_prod3(uint32_t (*x)[8], const uint32_t* Bl,
                                          const uint32_t* Bh,
@@ -230,17 +177,6 @@ __device__ __forceinline__ void k4_start(K4Sums& s, uint32_t (*ln)[8]) {
 #pragma unroll
     for (int w = 0; w < 8; ++w) s[t][w][threadIdx.x] = 0;
     zero8(ln[t]);
-  }
-}
-
-// v summed over the warp's lanes into lane 0
-__device__ __forceinline__ void warp_sum8(uint32_t* v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    uint32_t t[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) t[k] = __shfl_down_sync(0xffffffffu, v[k], off);
-    fq_add(v, v, t);
   }
 }
 
@@ -320,19 +256,19 @@ __global__ void __launch_bounds__(K4_THREADS, K4_P1_MIN_BLOCKS)
     uint32_t x[3][8];
     {
       uint32_t Bl[8], Bh[8], Cl[8], Ch[8];
-      k4_pair<BIND>(Bl, Bh, a.B, lo, half, out, rr, true);
-      k4_pair<BIND>(Cl, Ch, a.C, lo, half, out, rr, true);
+      tab_pair<BIND>(Bl, Bh, a.B, lo, half, out, rr, true);
+      tab_pair<BIND>(Cl, Ch, a.C, lo, half, out, rr, true);
       k4_prod3(x, Bl, Bh, Cl, Ch);
     }
     {
       uint32_t Dl[8], Dh[8];
-      k4_pair<BIND>(Dl, Dh, a.D, lo, half, out, rr, true);
+      tab_pair<BIND>(Dl, Dh, a.D, lo, half, out, rr, true);
       k4_apply3<true>(x, Dl, Dh);
     }
     {
       uint32_t el[8], eh[8];
-      k4_pair<BIND>(el, eh, Tab{eqa, a.neq}, i, nh, i, rr,
-                    o == 0 && in == 0);
+      tab_pair<BIND>(el, eh, Tab{eqa, a.neq}, i, nh, i, rr,
+                     o == 0 && in == 0);
       k4_apply3<false>(x, el, eh);
     }
     // the line o * inner + in: the eq factors of the two axes not bound
@@ -403,18 +339,18 @@ __global__ void __launch_bounds__(K4_THREADS) k_p2_round(P2Args a) {
         const unsigned oa = a.PB > 1 ? o : (AXIS == 2 ? o % a.Wn : 0u);
         const size_t la = ((size_t)oa * n_in + i) * inner + in;
         const size_t oa_out = ((size_t)oa * 2 * nh + i) * inner + in;
-        k4_pair<BIND>(Al, Ah, a.A, la, half, oa_out, rr,
-                      a.PB > 1 || p == 0);
+        tab_pair<BIND>(Al, Ah, a.A, la, half, oa_out, rr,
+                       a.PB > 1 || p == 0);
       } else {
         ld_el(Al, a.A.src + 16 * (size_t)in);
         copy8(Ah, Al);
       }
-      k4_pair<BIND>(Zl, Zh, a.Z, lo, half, out, rr, true);
+      tab_pair<BIND>(Zl, Zh, a.Z, lo, half, out, rr, true);
       k4_prod3(x, Al, Ah, Zl, Zh);
     }
     if (AXIS == 0) {  // eq_p varies along the axis: one line, factor 1
       uint32_t el[8], eh[8];
-      k4_pair<BIND>(el, eh, Tab{a.ep, a.nep}, i, nh, i, rr, in == 0);
+      tab_pair<BIND>(el, eh, Tab{a.ep, a.nep}, i, nh, i, rr, in == 0);
       k4_apply3<false>(x, el, eh);
       if (key != 0u) {
         key = 0u;

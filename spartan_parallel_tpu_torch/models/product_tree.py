@@ -5,13 +5,18 @@ ProductCircuitEvalProofBatched:260,386) and the non-ZK batched cubic
 sumcheck it drives (src/sumcheck.rs:264 prove_cubic_batched); the JAX
 package's models/product_tree.py, byte for byte.
 
-A layer of a product tree is one field product of two half tables; trees
-built together (`ProductCircuit.batch`) grow every layer of the stack in
-one K6 launch. The batched layer sumcheck stacks the circuits of a layer
-into (B, n, 16) tensors, so that each round is one K6 launch for all
-product circuits (C, the eq table, shared) and one for the dot-product
-circuits (C per circuit), followed by K1 folds (ops/product.py). The host
-holds the transcript and one (B, 3) copy of the round's evaluations.
+Trees built together (`ProductCircuit.batch`) share one stack: every layer
+of every tree and the roots come from K6's tree kernel, a few layers a
+launch, and each circuit's layers are views of the stacked ones, so its
+evaluation is its root, read back once a stack. Dot-product circuits built
+together (`DotProductCircuit.batch`) are evaluated once a stack. The
+batched layer sumcheck reads the stacked layers in place when its circuits
+are consecutive rows of one stack (else it stacks them); each round is one
+K6 launch for all product and dot-product circuits (the bind of the
+previous challenge, the evaluations and their sum weighted by the layer's
+coefficients) and a layer's last bind one more (ops/product.py). The host
+holds the transcript and copies 3 field elements a round and the claims
+once a layer.
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from .dense_mlpoly import (
     DensePolynomial,
     EqPolynomial,
     log2,
-    mont_to_scalar,
     mont_to_scalars,
     scalars_to_mont,
 )
@@ -37,33 +41,56 @@ _ZERO = Scalar.zero()
 _ONE = Scalar.one()
 
 
+class _Stack:
+    """Stacked tables of several circuits and the function of them that
+    gives every row's evaluation (the trees' roots, the dot products),
+    read back to the host once."""
+
+    __slots__ = ("tables", "_evaluate", "_values")
+
+    def __init__(self, tables, evaluate):
+        self.tables, self._evaluate, self._values = tables, evaluate, None
+
+    def value(self, row: int) -> Scalar:
+        if self._values is None:
+            self._values = mont_to_scalars(self._evaluate(*self.tables))
+        return self._values[row]
+
+
+def _rows(circuits):
+    """(stack, first row) when the circuits are consecutive rows of one
+    stack, else None."""
+    s, r0 = circuits[0].stack, circuits[0].row
+    if all(c.stack is s and c.row == r0 + i for i, c in enumerate(circuits)):
+        return s, r0
+    return None
+
+
 class ProductCircuit:
     """Binary product tree; layer k holds 2^(L-k) values as (left, right)
     halves (product_tree.rs:12-63)."""
 
-    __slots__ = ("left_vec", "right_vec")
+    __slots__ = ("left_vec", "right_vec", "stack", "row")
 
     def __init__(self, poly: DensePolynomial):
         c = ProductCircuit.batch(poly.Zm[None])[0]
-        self.left_vec, self.right_vec = c.left_vec, c.right_vec
+        for k in self.__slots__:
+            setattr(self, k, getattr(c, k))
 
     @staticmethod
     def batch(leaves: torch.Tensor) -> list:
-        """B trees over the rows of a (B, n, 16) tensor, every layer of the
-        stack in one launch; each circuit's layers are views of the
-        stacked ones."""
-        n = leaves.shape[1]
-        left, right = leaves[:, :n // 2], leaves[:, n // 2:]
-        lefts, rights = [left], [right]
-        for _ in range(log2(n) - 1):
-            left, right = pk.layer_mul(left, right)
-            lefts.append(left)
-            rights.append(right)
+        """B trees over the rows of a (B, n, 16) tensor: every layer and
+        the roots of the stack from K6's tree kernel (pt_tree); each
+        circuit's layers are views of the stacked ones, layer k the two
+        halves of the stack's layer k."""
+        layers = pk.pt_tree(leaves)
+        stack = _Stack(layers, lambda *t: t[-1])
         out = []
         for b in range(leaves.shape[0]):
             c = object.__new__(ProductCircuit)
-            c.left_vec = [t[b] for t in lefts]
-            c.right_vec = [t[b] for t in rights]
+            c.left_vec = [t[b, :t.shape[1] // 2] for t in layers[:-1]]
+            c.right_vec = [t[b, t.shape[1] // 2:] for t in layers[:-1]]
+            c.stack, c.row = stack, b
             out.append(c)
         return out
 
@@ -71,23 +98,41 @@ class ProductCircuit:
         return len(self.left_vec)
 
     def evaluate(self) -> Scalar:
-        top = fq.mul(self.left_vec[-1], self.right_vec[-1])
-        return mont_to_scalar(top[0])
+        """The root, from the stack's roots (one copy to the host a
+        stack)."""
+        return self.stack.value(self.row)
 
 
 class DotProductCircuit:
     """sum_i left_i right_i weight_i (product_tree.rs:67-110)."""
 
-    __slots__ = ("left", "right", "weight")
+    __slots__ = ("left", "right", "weight", "stack", "row")
 
     def __init__(self, left, right, weight):
         # (n, 16) Montgomery tensors on one device
         assert left.shape == right.shape == weight.shape
         self.left, self.right, self.weight = left, right, weight
+        self.stack = _Stack((left[None], right[None], weight[None]),
+                            _dot_products)
+        self.row = 0
+
+    @staticmethod
+    def batch(left, right, weight) -> list:
+        """S circuits over the rows of three (S, n, 16) tensors, evaluated
+        together (a K1 product and a K1 dot over the stack, counted as
+        dotp_eval) on the first evaluate()."""
+        assert left.shape == right.shape == weight.shape
+        stack = _Stack((left, right, weight), _dot_products)
+        out = []
+        for s in range(left.shape[0]):
+            d = object.__new__(DotProductCircuit)
+            d.left, d.right, d.weight = left[s], right[s], weight[s]
+            d.stack, d.row = stack, s
+            out.append(d)
+        return out
 
     def evaluate(self) -> Scalar:
-        return mont_to_scalar(fq.sum_reduce(
-            fq.mul(fq.mul(self.left, self.right), self.weight), 0))
+        return self.stack.value(self.row)
 
     def split(self):
         h = self.left.shape[0] // 2
@@ -97,44 +142,76 @@ class DotProductCircuit:
         )
 
 
+def _dot_products(left, right, weight) -> torch.Tensor:
+    """(S,) sums of left right weight over the rows of (S, n, 16)."""
+    lr = fq.mul(left, right, counter="dotp_eval")
+    return fq.dot(lr, weight, 1, counter="dotp_eval")
+
+
+def _layer_tables(prod_circuits, layer_id: int):
+    """The (Bp, n, 16) left and right tables of the circuits at a layer:
+    the stack's layer read in place when they are consecutive rows of one
+    stack, else stacked."""
+    rows = _rows(prod_circuits)
+    if rows is None:
+        return (torch.stack([c.left_vec[layer_id] for c in prod_circuits]),
+                torch.stack([c.right_vec[layer_id] for c in prod_circuits]))
+    stack, r0 = rows
+    t = stack.tables[layer_id][r0:r0 + len(prod_circuits)]
+    h = t.shape[1] // 2
+    return t[:, :h], t[:, h:]
+
+
+def _dotp_tables(dotp_circuits):
+    rows = _rows(dotp_circuits)
+    if rows is None:
+        return tuple(torch.stack([getattr(d, k) for d in dotp_circuits])
+                     for k in ("left", "right", "weight"))
+    stack, r0 = rows
+    return tuple(t[r0:r0 + len(dotp_circuits)] for t in stack.tables)
+
+
 def prove_cubic_batched(claim, num_rounds, A_par, B_par, C_par, A_seq,
                         B_seq, C_seq, coeffs, transcript):
     """Non-ZK batched cubic sumcheck (sumcheck.rs:264-434).
 
-    A_par/B_par: (B, n, 16) stacked circuit-layer tensors sharing C_par
-    (n, 16); A_seq/B_seq/C_seq: (S, n, 16) stacked dot-product tensors (or
-    None). Returns (proof, r, claims_prod, claims_dotp)."""
+    A_par/B_par: (B, n, 16) circuit-layer tables (any row stride) sharing
+    C_par (n, 16); A_seq/B_seq/C_seq: (S, n, 16) dot-product tables (or
+    None). Each round is one K6 launch (pt_round) and the last bind one
+    more (pt_fold). Returns (proof, r, claims_prod, claims_dotp)."""
     e = claim
     r = []
     cubic_polys = []
     have_seq = A_seq is not None and A_seq.shape[0] > 0
+    seq = (A_seq, B_seq, C_seq) if have_seq else None
+    tabs = (A_par, B_par, C_par, seq)
+    coef = scalars_to_mont(coeffs, A_par.device)
+    rm = None
     for _ in range(num_rounds):
-        evs = pk.cubic_evals(A_par, B_par, C_par)
-        if have_seq:
-            evs = torch.cat([evs, pk.cubic_evals(A_seq, B_seq, C_seq)])
-        evs = mont_to_scalars(evs)
-        c0 = c2 = c3 = _ZERO
-        for i, co in enumerate(coeffs):
-            c0 = c0 + evs[3 * i] * co
-            c2 = c2 + evs[3 * i + 1] * co
-            c3 = c3 + evs[3 * i + 2] * co
+        evs, bound = pk.pt_round(*tabs[:3], coef, rm, tabs[3])
+        tabs = bound or tabs
+        c0, c2, c3 = mont_to_scalars(evs)
         poly = UniPoly.from_evals([c0, e - c0, c2, c3])
         poly.append_to_transcript(b"poly", transcript)
         r_j = transcript.challenge_scalar(b"challenge_nextround")
         r.append(r_j)
         rm = scalars_to_mont([r_j], A_par.device)[0]
-        A_par, B_par, C_par = (pk.fold(t, rm) for t in (A_par, B_par, C_par))
-        if have_seq:
-            A_seq, B_seq, C_seq = (pk.fold(t, rm)
-                                   for t in (A_seq, B_seq, C_seq))
         e = poly.evaluate(r_j)
         cubic_polys.append(poly.compress())
 
-    claims_prod = (mont_to_scalars(A_par[:, 0]), mont_to_scalars(B_par[:, 0]),
-                   mont_to_scalar(C_par[0]))
+    Bp = A_par.shape[0]
+    if num_rounds:
+        claims = pk.pt_fold(*tabs[:3], rm, tabs[3])
+    else:
+        claims = torch.cat([tabs[0][:, 0], tabs[1][:, 0], tabs[2][:1]] +
+                           ([t[:, 0] for t in seq] if have_seq else []))
+    claims = mont_to_scalars(claims)
+    claims_prod = (claims[:Bp], claims[Bp:2 * Bp], claims[2 * Bp])
     if have_seq:
-        claims_dotp = tuple(mont_to_scalars(t[:, 0])
-                            for t in (A_seq, B_seq, C_seq))
+        S = A_seq.shape[0]
+        q = 2 * Bp + 1
+        claims_dotp = (claims[q:q + S], claims[q + S:q + 2 * S],
+                       claims[q + 2 * S:])
     else:
         claims_dotp = ([], [], [])
     return SumcheckInstanceProof(cubic_polys), r, claims_prod, claims_dotp
@@ -164,6 +241,9 @@ class ProductCircuitEvalProofBatched:
 
     @staticmethod
     def prove(prod_circuits, dotp_circuits, transcript):
+        """The circuits' layers are read in place when they are
+        consecutive rows of one stack (ProductCircuit.batch,
+        DotProductCircuit.batch), else stacked a layer at a time."""
         assert prod_circuits
         dev = prod_circuits[0].left_vec[0].device
         claims_dotp_final = ([], [], [])
@@ -172,10 +252,7 @@ class ProductCircuitEvalProofBatched:
         claims_to_verify = [c.evaluate() for c in prod_circuits]
         rand = []
         for layer_id in range(num_layers - 1, -1, -1):
-            # stacked layer tensors (each circuit's left/right at this layer)
-            A_par = torch.stack([c.left_vec[layer_id] for c in prod_circuits])
-            B_par = torch.stack([c.right_vec[layer_id]
-                                 for c in prod_circuits])
+            A_par, B_par = _layer_tables(prod_circuits, layer_id)
             C_par = EqPolynomial(rand).evals_dev(dev)
             assert C_par.shape[0] == A_par.shape[1]
             num_rounds_prod = log2(C_par.shape[0])
@@ -184,9 +261,7 @@ class ProductCircuitEvalProofBatched:
             if layer_id == 0 and dotp_circuits:
                 claims_to_verify = claims_to_verify + [
                     d.evaluate() for d in dotp_circuits]
-                A_seq = torch.stack([d.left for d in dotp_circuits])
-                B_seq = torch.stack([d.right for d in dotp_circuits])
-                C_seq = torch.stack([d.weight for d in dotp_circuits])
+                A_seq, B_seq, C_seq = _dotp_tables(dotp_circuits)
 
             coeffs = transcript.challenge_vector(
                 b"rand_coeffs_next_layer", len(claims_to_verify))

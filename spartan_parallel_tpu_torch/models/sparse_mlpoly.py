@@ -608,29 +608,24 @@ class ProductLayerProof:
                                        col_audit, transcript)
 
         assert len(evals) == len(derefs.row_ops_val) == len(dense.val)
-        dotp_left_vec, dotp_right_vec = [], []
+        # the dot-product circuits' halves as one stack (row 2i the left
+        # half of circuit i, 2i + 1 its right half), evaluated once
+        k = len(evals)
+        dotp_list = DotProductCircuit.batch(*(
+            torch.stack([p.Zm for p in polys]).reshape(2 * k, -1, 16)
+            for polys in (derefs.row_ops_val, derefs.col_ops_val,
+                          dense.val)))
         eval_dotp_left_vec, eval_dotp_right_vec = [], []
-        for i in range(len(derefs.row_ops_val)):
-            dotp = DotProductCircuit(derefs.row_ops_val[i].Zm,
-                                     derefs.col_ops_val[i].Zm,
-                                     dense.val[i].Zm)
-            dl, dr = dotp.split()
-            el, er = dl.evaluate(), dr.evaluate()
+        for i in range(k):
+            el = dotp_list[2 * i].evaluate()
+            er = dotp_list[2 * i + 1].evaluate()
             transcript.append_scalar(b"claim_eval_dotp_left", el)
             transcript.append_scalar(b"claim_eval_dotp_right", er)
             assert el + er == evals[i]
             eval_dotp_left_vec.append(el)
             eval_dotp_right_vec.append(er)
-            dotp_left_vec.append(dl)
-            dotp_right_vec.append(dr)
 
-        num_instances = len(row_prod_layer.read_vec)
-        prod_list = []
-        dotp_list = []
-        for i in range(num_instances):
-            prod_list.append(row_prod_layer.read_vec[i])
-            dotp_list.append(dotp_left_vec[i])
-            dotp_list.append(dotp_right_vec[i])
+        prod_list = list(row_prod_layer.read_vec)
         prod_list += row_prod_layer.write_vec
         prod_list += col_prod_layer.read_vec
         prod_list += col_prod_layer.write_vec

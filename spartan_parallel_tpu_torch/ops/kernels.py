@@ -10,7 +10,7 @@ cudaGetLastError() and `launch` raises when it is not 0.
 
 `launches` counts, per wrapper, the calls that launched a kernel on the
 card; a function built on K1's wrappers (eq_fold, pc_bind, the ABC
-combination, SPARK's hash layer and product-tree folds, the rlc dot of
+combination, SPARK's hash layer and dot-product circuits, the rlc dot of
 ShiftProofs) also counts its launches under its own name. The eq table is
 K1's own kernel, counted as eq_evals. CPU tensors take the plain PyTorch
 versions and are not counted.
@@ -69,8 +69,10 @@ _ENTRIES = {
     "pc_round_launch": ("sumcheck", [_P] * 9 + [_I64, _I64, _I64, _I32, _I32,
                                                 _I64, _I64, _I64, _I32, _P,
                                                 _P, _P, _P]),
-    "pt_layer_mul_launch": ("product", [_P, _P, _P, _P, _I64, _I64, _P]),
-    "pt_cubic_launch": ("product", [_P] * 5 + [_I64, _I64, _I64, _P]),
+    "pt_round_launch": ("product", [_P] * 3 + [_I64] * 2 + [_P] * 3
+                        + [_I64] * 7 + [_I32] + [_P] * 6),
+    "pt_tree_pass_launch": ("product", [_P, _P, _I64, _I64, _I32, _P]),
+    "pt_tree_final_launch": ("product", [_P, _P, _I64, _I64, _P]),
     "fq_powers_launch": ("uni", [_P, _P, _I64, _P]),
     "keccak_launch": ("zk_round", [_P, _P, _I64, _P]),
     "compress_launch": ("zk_round", [_P, _P, _I64, _P]),

@@ -306,24 +306,64 @@ def test_classed_sumcheck_kernel(dev):
     assert torch.equal(sck.eq_fold(tq, r, 4), fq.bind_plain(tq, r, 0, 4))
 
 
+def _same_tables(got, want) -> bool:
+    if isinstance(got, torch.Tensor):
+        return torch.equal(got, want)
+    if got is None or want is None:
+        return got is None and want is None
+    return len(got) == len(want) and all(
+        _same_tables(g, w) for g, w in zip(got, want))
+
+
 @pytest.mark.parametrize("B,n", [(3, 8), (2, 2), (1, 6000), (4, 8192)])
 def test_product_kernels(dev, B, n):
-    """K6 (layer, cubic round with a shared and a per-instance C) and the
-    pt_fold bind against their plain versions, from the last layer (n = 2)
-    to rounds of several chunks (h = 3000 and 4096 pairs)."""
+    """K6's round kernel (pt_round without and with the challenge r, and
+    the layer's last bind pt_fold), each with and without the dot-product
+    stack and with the product tables read in place as the two halves of
+    a tree layer's rows, from the last layer (n = 2) to rounds of several
+    blocks (n = 6000, a ragged last block, and 8192); and the tree kernel
+    (pt_tree) at 2 ... 2^14 leaves: every output against the plain
+    version, exactly."""
     from spartan_parallel_tpu_torch.ops import product as pk
 
-    left, right = rand_field((B, n), dev, 100), rand_field((B, n), dev, 101)
-    got, want = pk.layer_mul(left, right), pk.layer_mul_plain(left, right)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    C = rand_field((n,), dev, 102)
-    Cb = rand_field((B, n), dev, 103)
-    for c in (C, Cb):
-        assert torch.equal(pk.cubic_evals(left, right, c),
-                           pk.cubic_evals_plain(left, right, c))
-    r = rand_field((), dev, 104)
-    for t in (left, C):
-        assert torch.equal(pk.fold(t, r), pk.fold_plain(t, r))
+    layer = rand_field((B, 2 * n), dev, 100)
+    stacks = ((rand_field((B, n), dev, 101), rand_field((B, n), dev, 102)),
+              (layer[:, :n], layer[:, n:]))
+    C = rand_field((n,), dev, 103)
+    seq = tuple(rand_field((2, n), dev, 104 + k) for k in range(3))
+    r = rand_field((), dev, 107)
+    for A, Bt in stacks:
+        for sq in (None, seq):
+            coef = rand_field((B + (2 if sq else 0),), dev, 108)
+            for rr in [None] + ([r] if n % 4 == 0 else []):
+                got = pk.pt_round(A, Bt, C, coef, rr, sq)
+                want = pk.pt_round_plain(A, Bt, C, coef, rr, sq)
+                assert _same_tables(got, want)
+            if n == 2:
+                assert torch.equal(pk.pt_fold(A, Bt, C, r, sq),
+                                   pk.pt_fold_plain(A, Bt, C, r, sq))
+    N = {2: 2, 8: 8, 6000: 1 << 14, 8192: 4096}[n]
+    leaves = rand_field((B, N), dev, 109)
+    assert _same_tables(pk.pt_tree(leaves), pk.pt_tree_plain(leaves))
+
+
+def test_product_kernels_many_instances(dev):
+    """K6 on one stack of 65537 instances (more than a grid.y could hold):
+    trees of 2 leaves, a round of 4 entries with and without r, and the
+    last bind of 2."""
+    from spartan_parallel_tpu_torch.ops import product as pk
+
+    B = 65537
+    leaves = rand_field((B, 2), dev, 110)
+    assert _same_tables(pk.pt_tree(leaves), pk.pt_tree_plain(leaves))
+    A, Bt = rand_field((B, 4), dev, 111), rand_field((B, 4), dev, 112)
+    C, coef = rand_field((4,), dev, 113), rand_field((B,), dev, 114)
+    r = rand_field((), dev, 115)
+    for rr in (None, r):
+        assert _same_tables(pk.pt_round(A, Bt, C, coef, rr),
+                            pk.pt_round_plain(A, Bt, C, coef, rr))
+    assert torch.equal(pk.pt_fold(A[:, :2], Bt[:, :2], C[:2], r),
+                       pk.pt_fold_plain(A[:, :2], Bt[:, :2], C[:2], r))
 
 
 def test_nizk_card_matches_cpu(dev):

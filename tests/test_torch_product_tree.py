@@ -1,12 +1,18 @@
 """K6 (SPARK's grand-product circuits): the port's plain versions against
 the JAX package's models/product_tree.py kernels (_layer_mul,
 _batched_cubic_evals, _batched_cubic_evals_seq, _batched_fold) at B = 3
-circuits, S = 2 dot-product circuits and n = 8; ProductCircuit.evaluate;
-and ProductCircuitEvalProofBatched at the shapes of tests/test_spark.py
-(three product circuits of 8 leaves, and two with two dot-product
-circuits): the port's proof must serialize to the JAX package's bytes
-with the same random point and transcript state, and each package's
-verifier must accept the other's proof. Tolerance: exact equality."""
+circuits, S = 2 dot-product circuits and n = 8; the round (pt_round_plain:
+folds, evaluations and the coefficient sum, with and without r and the
+dot-product stack, and at n = 2), the last bind (pt_fold_plain) and the
+tree (pt_tree_plain, stacks of 3 trees of 8 and 16 leaves) against the
+JAX kernels they stand for (run in a fresh process);
+ProductCircuit.evaluate; and ProductCircuitEvalProofBatched at the shapes
+of tests/test_spark.py (three product circuits of 8 leaves, and two with
+two dot-product circuits): the port's proof must serialize to the JAX
+package's bytes with the same random point and transcript state, each
+package's verifier must accept the other's proof, and the port's proof
+from stacked circuits must equal its proof from a list of views.
+Tolerance: exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +34,7 @@ from spartan_parallel_tpu_torch.ops import product as pk
 from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import shared_result
+from .torch_shared import in_fresh_process, shared_result
 
 rng = np.random.default_rng(31)
 
@@ -64,24 +70,24 @@ def same(j, t):
 def test_kernel_matches_jax(kernel):
     A, B = tab(3, 8), tab(3, 8)
     if kernel == "layer_mul":
-        got = pk.layer_mul(A[1], B[1])
+        got = pk.layer_mul_plain(A[1], B[1])
         for b in range(3):
             jl, jr = jpt._layer_mul(A[0][b], B[0][b])
             assert same(jl, got[0][b]) and same(jr, got[1][b])
     elif kernel == "cubic":
         C = tab(8)
         assert same(jpt._batched_cubic_evals(A[0], B[0], C[0]),
-                    pk.cubic_evals(A[1], B[1], C[1]))
+                    pk.cubic_evals_plain(A[1], B[1], C[1]))
     elif kernel == "cubic_seq":
         A, B, C = tab(2, 8), tab(2, 8), tab(2, 8)
         assert same(jpt._batched_cubic_evals_seq(A[0], B[0], C[0]),
-                    pk.cubic_evals(A[1], B[1], C[1]))
+                    pk.cubic_evals_plain(A[1], B[1], C[1]))
     else:
         r = tab(1)
         assert same(jpt._batched_fold(A[0], r[0][0]),
-                    pk.fold(A[1], r[1][0]))
+                    pk.fold_plain(A[1], r[1][0]))
         assert same(jpt._batched_fold(A[0][:1], r[0][0])[0],
-                    pk.fold(A[1][0], r[1][0]))
+                    pk.fold_plain(A[1][0], r[1][0]))
 
 
 def test_product_circuit_evaluate():
@@ -215,3 +221,167 @@ def test_port_rejects_tampered_proof(tamper):
     with pytest.raises(ProofVerifyError):
         proof.verify(claims, [Scalar(c) for c in dotp], 8,
                      Transcript(LABEL["dotp"]))
+
+
+# pt_round cases: (bound to r first, with the dot-product stack, n)
+ROUND_CASES = {
+    "evals": (False, False, 8), "evals_seq": (False, True, 8),
+    "bind": (True, False, 16), "bind_seq": (True, True, 16),
+    "evals_n2": (False, True, 2), "last_bind": (True, True, 2),
+}
+
+
+def round_inputs(case):
+    """A case's tables as the JAX package's Montgomery limbs (numpy, from a
+    fixed seed): A, B (3, n), C (n), Aq, Bq, Cq (2, n), the coefficients
+    and r."""
+    bind, seq, n = ROUND_CASES[case]
+    g = np.random.default_rng(70 + list(ROUND_CASES).index(case))
+    shapes = [(3, n), (3, n), (n,), (2, n), (2, n), (2, n), (5,), (1,)]
+    out = []
+    for shape in shapes:
+        v = [int.from_bytes(g.bytes(40), "little") % L
+             for _ in range(int(np.prod(shape)))]
+        out.append(jfq.encode(v).reshape(shape + (16,)))
+    return out
+
+
+def jax_rounds():
+    """Per case, from the JAX package: the tables after _batched_fold
+    (the eq table C by _fold of its halves, as prove_cubic_batched folds
+    it), and then the round's (c0, c2, c3) = sum_k coef_k (e0, e2, e3)_k
+    of _batched_cubic_evals and _batched_cubic_evals_seq, summed in Python
+    Scalars (the last bind: the folded tables only)."""
+    from spartan_parallel_tpu.ops.sumcheck import _fold, _split
+
+    res = {}
+    for case, (bind, seq, n) in ROUND_CASES.items():
+        A, B, C, Aq, Bq, Cq, coef, r = (jnp.asarray(t)
+                                        for t in round_inputs(case))
+        tabs = [A, B, C] + ([Aq, Bq, Cq] if seq else [])
+        if bind:
+            rm = r[0]
+            tabs = [jpt._batched_fold(t, rm) if t.ndim == 3 else
+                    _fold(*_split(t, 0), rm) for t in tabs]
+        folded = [np.asarray(t).astype(np.int32) for t in tabs]
+        if case == "last_bind":
+            res[case] = (folded, None)
+            continue
+        evs = jdm.mont_to_scalars(jpt._batched_cubic_evals(*tabs[:3]))
+        if seq:
+            evs += jdm.mont_to_scalars(
+                jpt._batched_cubic_evals_seq(*tabs[3:]))
+        cos = jdm.mont_to_scalars(coef)
+        sums = [JScalar.zero()] * 3
+        for k in range(len(evs) // 3):
+            for t in range(3):
+                sums[t] = sums[t] + evs[3 * k + t] * cos[k]
+        res[case] = (folded, [int(x) for x in sums])
+    return res
+
+
+def jax_k6_refs():
+    """The JAX package's results for the round and tree tests, computed
+    together in one process."""
+    return {"rounds": jax_rounds(), "trees": {n: jax_trees(n)
+                                              for n in (8, 16)}}
+
+
+@pytest.fixture(scope="module")
+def jax_k6(tmp_path_factory):
+    return shared_result(tmp_path_factory, "jax_k6_refs",
+                         lambda: in_fresh_process(jax_k6_refs, timeout=600))
+
+
+@pytest.mark.parametrize("case", list(ROUND_CASES))
+def test_pt_round_matches_jax(jax_k6, case):
+    """pt_round_plain (and, for the last bind, pt_fold_plain) against JAX's
+    folds, cubic evaluations and the coefficient sum in Scalars."""
+    bind, seq, n = ROUND_CASES[case]
+    want_tabs, want_sums = jax_k6["rounds"][case]
+    A, B, C, Aq, Bq, Cq, coef, r = (torch.from_numpy(t.astype(np.int32))
+                                    for t in round_inputs(case))
+    sq = (Aq, Bq, Cq) if seq else None
+    if case == "last_bind":
+        claims = pk.pt_fold_plain(A, B, C, r[0], sq)
+        want = np.concatenate([want_tabs[0][:, 0], want_tabs[1][:, 0],
+                               want_tabs[2][:1]]
+                              + [t[:, 0] for t in want_tabs[3:]])
+        assert np.array_equal(claims.numpy(), want)
+        return
+    coef = coef[:3 + (2 if seq else 0)]
+    out, tabs = pk.pt_round_plain(A, B, C, coef, r[0] if bind else None, sq)
+    assert [int(x) for x in tdm.mont_to_scalars(out)] == want_sums
+    if bind:
+        got = list(tabs[:3]) + (list(tabs[3]) if seq else [])
+        assert len(got) == len(want_tabs)
+        assert all(np.array_equal(g.numpy(), w)
+                   for g, w in zip(got, want_tabs))
+    else:
+        assert tabs is None
+
+
+def jax_trees(n):
+    """JAX's layers of 3 trees of n leaves (_layer_mul iterated, each
+    layer the concatenation of its halves, the last the root alone) and
+    each circuit's root from ProductCircuit.evaluate."""
+    g = np.random.default_rng(40 + n)
+    leaves = [[int.from_bytes(g.bytes(40), "little") % L for _ in range(n)]
+              for _ in range(3)]
+    layers = []
+    for vals in leaves:
+        t = jnp.asarray(jfq.encode(vals))
+        rows = [np.asarray(t)]
+        while t.shape[0] > 1:
+            lo, hi = jpt._layer_mul(t[:t.shape[0] // 2], t[t.shape[0] // 2:])
+            t = jnp.concatenate([lo, hi])
+            rows.append(np.asarray(t))
+        layers.append(rows)
+    roots = [int(jpt.ProductCircuit(
+        jdm.DensePolynomial.from_scalars(v)).evaluate()) for v in leaves]
+    return leaves, layers, roots
+
+
+@pytest.mark.parametrize("n", [8, 16])
+def test_pt_tree_matches_jax(jax_k6, n):
+    """pt_tree_plain on a stack of 3 trees against JAX's _layer_mul layers
+    and ProductCircuit.evaluate, and ProductCircuit.batch's roots."""
+    leaves, layers, roots = jax_k6["trees"][n]
+    stack = torch.stack([tdm.scalars_to_mont(v, "cpu") for v in leaves])
+    got = pk.pt_tree_plain(stack)
+    assert len(got) == len(layers[0])
+    for k, t in enumerate(got):
+        for b in range(3):
+            assert np.array_equal(t[b].numpy(), layers[b][k])
+    assert [int(x) for x in tdm.mont_to_scalars(got[-1])] == roots
+    circuits = tpt.ProductCircuit.batch(stack)
+    assert [int(c.evaluate()) for c in circuits] == roots
+
+
+def test_proof_from_stack_equals_views():
+    """ProductCircuitEvalProofBatched.prove from circuits that are
+    consecutive rows of one stack (read in place) and from the same
+    circuits as a list of views (stacked a layer at a time: their stack
+    built in another row order, the dot-product circuits one by one) gives
+    the same bytes."""
+    polys, dotp = CASES["dotp"]
+    polys = polys + [rand_ints(8)]
+    leaves = torch.stack([tdm.scalars_to_mont(p, "cpu") for p in polys])
+    stacked = tpt.ProductCircuit.batch(leaves)
+    perm = [2, 0, 1]
+    shuffled = tpt.ProductCircuit.batch(leaves[perm])
+    views = [shuffled[perm.index(b)] for b in range(3)]
+    assert tpt._rows(stacked) is not None and tpt._rows(views) is None
+    cols = [tdm.scalars_to_mont(v, "cpu") for v in dotp]
+    dots_stacked = tpt.DotProductCircuit.batch(
+        *(c.reshape(2, 4, 16) for c in cols))
+    dots_views = list(tpt.DotProductCircuit(*cols).split())
+    assert tpt._rows(dots_views) is None
+    out = []
+    for circuits, dots in ((stacked, dots_stacked), (views, dots_views)):
+        tp = Transcript(b"prodtest3")
+        proof, rand = tpt.ProductCircuitEvalProofBatched.prove(
+            circuits, dots, tp)
+        out.append((tser.serialize(proof, "ProductCircuitEvalProofBatched"),
+                    ints(rand), int(tp.challenge_scalar(b"probe"))))
+    assert out[0] == out[1]
