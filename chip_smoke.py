@@ -10,18 +10,24 @@ Phases, each printing one JSON line:
      (csrc/*.cu, one nvcc per source, in parallel);
   2. every kernel against its plain PyTorch version on the card, at the
      shapes its path gives it (exact equality; points after ristretto
-     compression), with the kernel's time, the plain version's time and
-     the least time the card could take (bound_ms): the NIZK's kernels at
-     2^20 (K1's eq table, one launch a call, also at 2^10 and 2^14; K4's
-     fused rounds, and K4 across a whole 2^20 sumcheck of each phase:
-     `sc_p1_rounds`, `sc_p2_rounds`), and the data-parallel proof's (K4's
-     x, q, w and p rounds, K5's
-     class rounds, eq_fold, pc_bind, the ABC combination) at the shapes of
-     the runs of phases 5 and 6, and SPARK's (K6's tree kernel over the
-     whole stack of ops trees and its first launch alone, its round kernel
-     as a layer's first round, a bound round and a layer's last bind, with
-     and without the dot-product stack, the hash layer) at the shapes of
-     the 2^20 SNARK of phase 7;
+     compression), with the kernel's time (`ms`, a call on CUDA events,
+     and `launch_ms`, its launches' device time alone), the plain
+     version's time and the least time the card could take (bound_ms):
+     the NIZK's kernels at
+     2^20 (K1's elementwise kernels, bind and dot, the dot one launch a
+     call; K1's eq table, one launch a call, also at 2^10 and 2^14; K4's
+     fused rounds, and K4 across a whole 2^20 sumcheck of each phase: `sc_p1_rounds`,
+     `sc_p2_rounds`), and the data-parallel proof's (K4's x, q, w and p
+     rounds, K5 for one class in each of its forms and for every class
+     of a round in one launch, eq_fold, pc_bind, the ABC combination) at
+     the shapes of the runs of phases 5 and 6, and SPARK's (K6's tree
+     kernel over the whole stack of ops trees and its first launch alone,
+     its round kernel as a layer's first round, a bound round and a
+     layer's last bind, with and without the dot-product stack, the hash
+     layer, one launch a call, also as the read and write hash of three
+     matrices) at the shapes of the 2^20 SNARK of phase 7; after phase 8,
+     K1's dot of a list of tables (`fq_dot_many`) and K5's round of every
+     class at the largest shapes find_min's run gave them;
   3. fixed tapes, proved on the card and on the CPU, whose serialized
      proofs must be identical and verify: the NIZK at 2^10 constraints x
      2^10 variables x 10 inputs (a tampered proof must fail), and the
@@ -80,8 +86,11 @@ and the first design's beside it; a line before phase 2 gives msm.cu's
 ptxas registers, spills and shared memory and the window kernel's blocks
 an SM, `ptxas_zk` the same for K8-K11 and k_fold with the stack
 frames of the functions they call (K11 may keep at most K11_STACK_MAX
-bytes), `ptxas_k4` for K4's twelve instances and K1's eq kernel, and
-`ptxas_k6` for K6's round, bind and tree kernels.
+bytes), `ptxas_k4` for K4's twelve instances and K5's two, `ptxas_k1`
+for K1's kernels, and `ptxas_k6` for K6's round, bind and tree kernels.
+Phases 5, 7 and 8 count the calls of K5's round of every class
+(pc_round), of _evaluate_many and of _hash_poly, and fail unless each
+took one launch (a classed round also one eq_fold): `launch_structure`.
 Phases 4, 5, 6, 7 (2^20) and 8 time their proves untraced, then prove the same
 tape once more under kernel_trace, whose CUDA events time every launch:
 the lines give that run's prove seconds (`traced_prove_s`, the events'
@@ -545,7 +554,7 @@ def check_kernels(log_n: int, dev, reps: int):
     from spartan_parallel_tpu_torch.models.r1csinstance import (
         produce_synthetic_r1cs,
     )
-    from spartan_parallel_tpu_torch.ops import curve, fq, spmv
+    from spartan_parallel_tpu_torch.ops import curve, fq, kernels, spmv
     from spartan_parallel_tpu_torch.ops import limbs as lb
     from spartan_parallel_tpu_torch.ops import sumcheck as sck
 
@@ -558,9 +567,10 @@ def check_kernels(log_n: int, dev, reps: int):
     def record(name, source, replaces, kern, plain, err_fn, nbytes, imads,
                reps_k=reps, path="nizk", counter=None, extra=None,
                plain_once=False):
-        """Time one kernel against its plain version. Its launches are
-        read later from `counter` (default: its name) in the run of
-        `path`. plain_once: the plain version's time is that of the call
+        """Time one kernel against its plain version (`ms`: a call on
+        CUDA events; `launch_ms`: its launches' device time alone). Its
+        launches are read later from `counter` (default: its name) in the
+        run of `path`. plain_once: the plain version's time is that of the call
         whose result is compared (for plain versions that take seconds).
         nbytes and imads may be lists, one entry a launch of a sequence:
         bound_ms is then the sum of the launches' bounds."""
@@ -572,6 +582,13 @@ def check_kernels(log_n: int, dev, reps: int):
         first_ms = (time.perf_counter() - t0) * 1e3
         err = err_fn(got, want)
         ms = cuda_ms(kern, reps_k)
+        # the device time of a call's launches alone (CUDA events right
+        # around each launch, as kernel_trace takes them): ms also holds
+        # the host's time between launches where the host is slower
+        with kernel_trace() as tr:
+            for _ in range(reps_k):
+                kern()
+        launch_ms = sum(t for _, t in tr.by_kernel().values()) / reps_k
         plain_ms = first_ms if plain_once else wall_ms(plain)
         if isinstance(nbytes, list):
             parts = [bound(b, o) for b, o in zip(nbytes, imads)]
@@ -583,6 +600,7 @@ def check_kernels(log_n: int, dev, reps: int):
         row = {"name": name, "route": "cuda",
                "source": "spartan_parallel_tpu_torch/csrc/" + source,
                "replaces": replaces, "max_abs_err": err, "ms": ms,
+               "launch_ms": launch_ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": None, **(extra or {})}
         rows.append(row)
@@ -595,23 +613,29 @@ def check_kernels(log_n: int, dev, reps: int):
     a = rand_field((n,), gen, dev)
     b = rand_field((n,), gen, dev)
     r = rand_field((), gen, dev)
-    # fq_sub's launches are read from find_min (SPARK's hash layer): the
-    # NIZK launched it only in the eq tables, which are one kernel now
-    for name, op, plain, line, path in (
-            ("fq_mul", fq.mul, fq.mul_plain, 79, "nizk"),
-            ("fq_add", fq.add, fq.add_plain, 83, "nizk"),
-            ("fq_sub", fq.sub, fq.sub_plain, 88, "findmin")):
+    # fq_sub is on no main path (NO_PATH)
+    for name, op, plain, line in (
+            ("fq_mul", fq.mul, fq.mul_plain, 79),
+            ("fq_add", fq.add, fq.add_plain, 83),
+            ("fq_sub", fq.sub, fq.sub_plain, 88)):
         imads = n * IMAD_FQ_MUL if name == "fq_mul" else 0
         record(name, "fq.cu", f"spartan_parallel_tpu/ops/fq.py:{line}",
                lambda op=op: op(a, b), lambda plain=plain: plain(a, b),
-               field_err, 3 * n * E, imads, path=path)
+               field_err, 3 * n * E, imads,
+               extra={"off_path": NO_PATH[name]} if name in NO_PATH
+               else None)
     record("fq_bind", "fq.cu", "spartan_parallel_tpu/ops/sumcheck.py:122",
            lambda: fq.bind(a, r, 0, n // 2),
            lambda: fq.bind_plain(a, r, 0, n // 2), field_err,
            2 * n * E, n // 2 * IMAD_FQ_MUL)
+    before = kernels.launches.get("fq_dot", 0)
+    fq.dot(a, b)
+    per_call = kernels.launches.get("fq_dot", 0) - before
+    if per_call != 1:
+        raise AssertionError(f"fq_dot: {per_call} launches a call")
     record("fq_dot", "fq.cu", "spartan_parallel_tpu/ops/fq.py:193",
            lambda: fq.dot(a, b), lambda: fq.dot_plain(a, b), field_err,
-           2 * n * E, n * IMAD_FQ_MUL)
+           2 * n * E, n * IMAD_FQ_MUL, extra={"launches_a_call": per_call})
 
     # the eq table (one K1 launch a call): the NIZK's tau_x and rx tables
     # at 2^log_n, and 2^10 (its Hyrax openings' factored tables) and 2^14;
@@ -620,7 +644,6 @@ def check_kernels(log_n: int, dev, reps: int):
     from spartan_parallel_tpu_torch.models.dense_mlpoly import (
         eq_evals, eq_evals_plain,
     )
-    from spartan_parallel_tpu_torch.ops import kernels
 
     for ell in (10, 14, log_n):
         rs = rand_field((ell,), gen, dev)
@@ -838,10 +861,12 @@ def check_kernels(log_n: int, dev, reps: int):
     return rows, paths, record
 
 
-# the kernel that no path of the JAX package, and so none of the port,
-# calls: held against its plain version, launched on no path
+# kernels that no main path launches: held against their plain versions
 NO_PATH = {"scale_points": "no caller in the JAX package "
-                           "(spartan_parallel_tpu/ops/curve.py:178)"}
+                           "(spartan_parallel_tpu/ops/curve.py:178)",
+           "fq_sub": "its path launches were SPARK's hash layer, now "
+                     "a kernel of its own (k_hash); fq.sub and fq.neg "
+                     "still launch it"}
 
 
 def check_parallel_kernels(dev, record, pts):
@@ -932,13 +957,55 @@ def check_parallel_kernels(dev, record, pts):
                       "off_path": NO_PATH["scale_points"]})
 
 
+def classes_row(record, name, tp, tq, tx, classes, p0s, Ss, n_half, mode,
+                prev, path, extra=None):
+    """K5's round of every class in one launch (ops/sumcheck.py pc_round,
+    a fused round: prev is the previous round's (r, mode, n_halves,
+    activities)) against pc_round_plain. Bytes: each class's live entries
+    read (two a new entry for a bind along an axis, one for the inactive
+    scale) and its new tables written; operations: one product a bound
+    entry and p1_muls for the evaluations."""
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    E = 64
+    args = (tp, tq, tx, classes, p0s, Ss, n_half, mode, prev)
+    want = sck.pc_round_plain(*args)
+    nbytes = muls = 0
+    for i, (T, active) in enumerate(zip(want[1], want[3])):
+        m = T[0].numel() // 16
+        scale = prev[1] == sck.MODE_Q and not prev[3][i]
+        nbytes += 3 * ((1 if scale else 2) * m + m) * E
+        pairs = m // 2 if active else m
+        lines = m // T[0].shape[2] if mode == sck.MODE_X else \
+            (T[0].shape[0] * T[0].shape[2] if active else T[0].shape[0])
+        muls += 3 * m + p1_muls(pairs, lines)
+
+    def same(got, w):
+        err = field_err(got[0], w[0])
+        if got[2:] != w[2:]:
+            return 1 << 16
+        for g, t in zip(got[1], w[1]):
+            err = max([err] + [field_err(a, b) if a.shape == b.shape
+                               else 1 << 16 for a, b in zip(g, t)])
+        return err
+
+    record(name, "sumcheck.cu", "spartan_parallel_tpu/ops/sumcheck.py:399",
+           lambda: sck.pc_round(*args), lambda: sck.pc_round_plain(*args),
+           same, nbytes,
+           muls * IMAD_FQ_MUL, path=path, counter="sc_pc_round",
+           plain_once=True,
+           extra={"classes": [list(c[0].shape[:3]) for c in classes],
+                  "n_half": n_half, "mode": "x" if mode == sck.MODE_X
+                  else "q", "active": want[3], **(extra or {})})
+
+
 def check_dp_kernels(dev, gen, record, cmp_step, E):
     """The data-parallel proof's kernels at the shapes of phases 5 and 6:
     P = 4 blocks, Q = 512 (skewed) or 256 (uniform) executions,
     X = Y = 2^10, W = 2. Bytes: each live table entry read once and each
-    written entry written once (K4's fused steps write tables of the new
-    live length, K5's the whole buffer); operations: the field products
-    (one per bound entry, p1_muls / p2_muls for the evaluations)."""
+    written entry written once (K4's and K5's fused steps write tables of
+    the new live length); operations: the field products (one per bound
+    entry, p1_muls / p2_muls for the evaluations)."""
     import torch
 
     from spartan_parallel_tpu_torch.models import r1csproof as rp
@@ -1002,12 +1069,15 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
                field_err, 2 * n * E + 4 * E, muls * IMAD_FQ_MUL,
                path="dp_uniform")
 
-    # K5: the class rounds of the skewed run [512, 128, 32, 32]. Active x:
-    # the class (P_c, Q_c, X) = (1, 512, 1024) at p0 = 0, S = 1, and the
-    # class of two blocks executed 32 times, (2, 32, 1024) at p0 = 2,
-    # S = 16 (eq_q read at a stride); active q: the first class after its
-    # x rounds, (1, 512, 1), and the block executed 128 times, (1, 128, 1)
-    # at p0 = 1, S = 4; inactive q: the last class, (2, 1, 1) at p0 = 2
+    # K5: the class rounds of the skewed run [512, 128, 32, 32], one class
+    # a launch. Active x: the class (P_c, Q_c, X) = (1, 512, 1024) at p0 =
+    # 0, S = 1, and the class of two blocks executed 32 times, (2, 32,
+    # 1024) at p0 = 2, S = 16 (eq_q read at a stride); active q: the first
+    # class after its x rounds, (1, 512, 1), and the block executed 128
+    # times, (1, 128, 1) at p0 = 1, S = 4; inactive q: the last class,
+    # (2, 1, 1) at p0 = 2. A fused step reads the live entries and writes
+    # the new tables of the live length (half of them; the inactive
+    # scale: all)
     tq = rand_field((512,), gen, dev)
     forms = (("x", X, True, tabs(1, 512, 1024), 0, 1, 512),
              ("xs", X, True, tabs(2, 32, 1024), 2, 16, 512),
@@ -1021,32 +1091,48 @@ def check_dp_kernels(dev, gen, record, cmp_step, E):
                     active_prev=active, active=active)
         pairs = n // 2 if active else n  # evaluated pairs, unfused
         lines = n // T[0].shape[2 if mode == X else 1]
+        written = n // 2 if active else n
         record(f"sc_pc_round_{form}", "sumcheck.cu", f"{src}:392",
                lambda T=T, nh=nh, mode=mode, kw=kw: sck.pc_evals(
                    tp, tq, tx, *T, nh, mode, **kw),
                lambda T=T, nh=nh, mode=mode, kw=kw: sck.pc_evals_plain(
                    tp, tq, tx, *T, nh, mode, **kw),
                field_err, 3 * n * E, p1_muls(pairs, lines) * IMAD_FQ_MUL,
-               path="dp_skewed")
+               path="dp_skewed", counter="sc_pc_round")
         record(f"sc_pc_round_{form}_fused", "sumcheck.cu", f"{src}:399",
                lambda T=T, nh=nh, step=step: sck.pc_step(
                    tp, tq, tx, *T, r, nh, nh // 2, **step),
                lambda T=T, nh=nh, step=step: sck.pc_step_plain(
                    tp, tq, tx, *T, r, nh, nh // 2, **step),
-               cmp_step, 6 * n * E,
-               (3 * pairs + p1_muls(pairs // 2 if active else pairs, lines))
-               * IMAD_FQ_MUL, path="dp_skewed")
+               cmp_step, 3 * (n + written) * E,
+               (3 * written
+                + p1_muls(pairs // 2 if active else pairs, lines))
+               * IMAD_FQ_MUL, path="dp_skewed", counter="sc_pc_round")
+    # every class of a round in one launch: config 4's three classes in a
+    # fused x round at the full x (live 1024 -> 512), and a q round of
+    # the global n_half 2 in which the first class binds and evaluates q,
+    # the second changes to inactive and the third scales
+    classes = [tabs(1, 512, 1024), tabs(1, 128, 1024), tabs(2, 32, 1024)]
+    classes_row(record, "sc_pc_round_classes", tp, tq, tx, classes,
+                [0, 1, 2], [1, 4, 16], 256, X,
+                (r, X, [512] * 3, [True] * 3), "dp_skewed")
+    del classes
+    classes = [tabs(1, 8, 1), tabs(1, 2, 1), tabs(2, 1, 1)]
+    classes_row(record, "sc_pc_round_classes_q", tp, tq, tx, classes,
+                [0, 1, 2], [1, 4, 16], 2, Q,
+                (r, Q, [4, 1, 4], [True, True, False]), "dp_skewed")
     record("eq_fold", "fq.cu", f"{src}:302",
            lambda: sck.eq_fold(tx, r, 512),
            lambda: fq.bind_plain(tx, r, 0, 512), field_err,
            2 * 1024 * E, 512 * IMAD_FQ_MUL, path="dp_skewed")
-    Tx = forms[0][3]
+    # the classes' last bind before the p rounds (models/sumcheck.py
+    # merge): the first class's q pair, and an inactive class's scale
+    Tm = tabs(1, 2, 1)
     record("pc_bind", "fq.cu", f"{src}:414",
-           lambda: sck.pc_bind(*Tx, r, 1, X, True),
-           lambda: sck.pc_bind_plain(*Tx, r, 1, X, True),
+           lambda: sck.pc_bind(*Tm, r, 1, Q, True),
+           lambda: sck.pc_bind_plain(*Tm, r, 1, Q, True),
            lambda got, want: max(field_err(g, w) for g, w in zip(got, want)),
-           3 * (2 + 512 * 1024) * E, 3 * 512 * IMAD_FQ_MUL,
-           path="dp_skewed")
+           3 * (2 + 2) * E, 3 * IMAD_FQ_MUL, path="dp_skewed")
     Ti = forms[-1][3]
     record("pc_bind_inactive", "fq.cu", f"{src}:414",
            lambda: sck.pc_bind(*Ti, r, 1, Q, False),
@@ -1084,6 +1170,7 @@ def check_spark_kernels(log_n: int, dev, gen, record, E):
     import torch
 
     from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
+    from spartan_parallel_tpu_torch.ops import kernels
     from spartan_parallel_tpu_torch.ops import product as pk
 
     src = "spartan_parallel_tpu/models/product_tree.py"
@@ -1167,14 +1254,33 @@ def check_spark_kernels(log_n: int, dev, gen, record, E):
            lambda: pk.pt_fold_plain(A, B, C, r, seq), field_err,
            (3 * tables + 1) * E, tables * IMAD_FQ_MUL, path="snark",
            extra={"shape": [12, 2], "dot_product_rows": 6})
-    # the hash layer of 2^20 read timestamps: ts r^2 + val r + addr - rm
+    # the hash layer of 2^20 read timestamps: ts r^2 + val r + addr - rm,
+    # one launch; then the read and the write hash of the three matrices'
+    # (3, 2^20) read timestamps together, as Layers.hash_tables makes them
     addr, val, ts = (rand_field((2 * n,), gen, dev) for _ in range(3))
     ch = rand_field((3,), gen, dev)
+    before = kernels.launches.get("hash_poly", 0)
+    sp._hash_poly(addr, val, ts, *ch)
+    per_call = kernels.launches.get("hash_poly", 0) - before
+    if per_call != 1:
+        raise AssertionError(f"hash_poly: {per_call} launches a call")
     record("hash_poly", "fq.cu",
            "spartan_parallel_tpu/models/sparse_mlpoly.py:289",
            lambda: sp._hash_poly(addr, val, ts, *ch),
-           lambda: hash_poly_plain(addr, val, ts, *ch), field_err,
-           (4 * 2 * n + 3) * E, 2 * 2 * n * IMAD_FQ_MUL, path="snark")
+           lambda: sp.hash_poly_plain(addr, val, ts, *ch), field_err,
+           (4 * 2 * n + 3) * E, 2 * 2 * n * IMAD_FQ_MUL, path="snark",
+           extra={"launches_a_call": per_call})
+    del addr, val, ts
+    addr, val, ts = (rand_field((3, 2 * n), gen, dev) for _ in range(3))
+    record("hash_poly_rw", "fq.cu",
+           "spartan_parallel_tpu/models/sparse_mlpoly.py:289",
+           lambda: sp._hash_poly(addr, val, ts, *ch, write=True),
+           lambda: sp.hash_poly_plain(addr, val, ts, *ch, write=True),
+           lambda got, want: max(field_err(g, w) for g, w in zip(got, want)),
+           (5 * 3 * 2 * n + 3) * E, 2 * 3 * 2 * n * IMAD_FQ_MUL,
+           path="snark", counter="hash_poly",
+           extra={"shape": [3, 2 * n], "write_hash": True})
+    del addr, val, ts
 
 
 def check_k6_choices(n: int, dev, gen, leaves):
@@ -1475,14 +1581,6 @@ def check_fp_chain(dev, card) -> dict:
            "ns_per_product": ns}
     emit(row)
     return row
-
-
-def hash_poly_plain(addr, val, ts, rh2, rh, rm):
-    """models/sparse_mlpoly.py _hash_poly from K1's plain versions."""
-    from spartan_parallel_tpu_torch.ops import fq
-
-    h = fq.add_plain(fq.mul_plain(ts, rh2), fq.mul_plain(val, rh))
-    return fq.sub_plain(fq.add_plain(h, addr), rm)
 
 
 def abc_comb_plain(tabs, rabc, num_inputs, yperm):
@@ -1844,6 +1942,85 @@ def spark_k6_launches(proof, counts: dict, tr) -> dict:
             "pt_tree": counts.get("pt_tree", 0)}
 
 
+@contextlib.contextmanager
+def path_calls():
+    """Counts the calls of the functions whose launches phases 5, 7 and 8
+    hold to one a call (K5's round of every class, ops/sumcheck.py
+    pc_round; SPARK's _evaluate_many and _hash_poly, K1), and keeps the
+    largest fused pc_round's and the largest _evaluate_many's arguments'
+    shapes (`largest`), for the rows phase 8 adds at find_min's shapes."""
+    from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
+    from spartan_parallel_tpu_torch.ops import sumcheck as sck
+
+    calls = {"pc_round": 0, "evaluate_many": 0, "hash_poly": 0,
+             "largest": {}}
+    pc_round, evaluate_many, hash_poly = (sck.pc_round, sp._evaluate_many,
+                                          sp._hash_poly)
+
+    def counted_pc_round(tp, tq, tx, tabs, p0s, Ss, n_half, mode,
+                         prev=None):
+        calls["pc_round"] += 1
+        size = sum(T[0].numel() for T in tabs)
+        big = calls["largest"].get("pc_round")
+        if prev is not None and (big is None or size > big["entries"]):
+            calls["largest"]["pc_round"] = {
+                "entries": size, "eq_lens": [tp.shape[0], tq.shape[0],
+                                             tx.shape[0]],
+                "classes": [list(T[0].shape[:3]) for T in tabs],
+                "p0s": list(p0s), "Ss": list(Ss), "n_half": int(n_half),
+                "mode": mode, "prev": [prev[1], list(prev[2]),
+                                       list(prev[3])]}
+        return pc_round(tp, tq, tx, tabs, p0s, Ss, n_half, mode, prev)
+
+    def counted_evaluate_many(polys, r):
+        calls["evaluate_many"] += 1
+        shape = [len(polys), int(polys[0].Zm.shape[0])]
+        big = calls["largest"].get("evaluate_many")
+        if big is None or shape[0] * shape[1] > big[0] * big[1]:
+            calls["largest"]["evaluate_many"] = shape
+        return evaluate_many(polys, r)
+
+    def counted_hash_poly(*args, **kw):
+        calls["hash_poly"] += 1
+        return hash_poly(*args, **kw)
+
+    sck.pc_round, sp._evaluate_many, sp._hash_poly = (
+        counted_pc_round, counted_evaluate_many, counted_hash_poly)
+    try:
+        yield calls
+    finally:
+        sck.pc_round, sp._evaluate_many, sp._hash_poly = (
+            pc_round, evaluate_many, hash_poly)
+
+
+def launch_structure(calls, counts, classed: bool, spark: bool) -> dict:
+    """The launches a call of the redesigned K1 and K5 pieces must take,
+    against the calls counted by path_calls: a classed round is one K5
+    launch for all its classes and one eq_fold; _evaluate_many and
+    _hash_poly are one launch a call. Raises when the run disagrees."""
+    out = {}
+    if classed:
+        out["pc_round_calls"] = calls["pc_round"]
+        out["sc_pc_round"] = counts.get("sc_pc_round", 0)
+        out["eq_fold"] = counts.get("eq_fold", 0)
+        if calls["pc_round"] == 0 or \
+                out["sc_pc_round"] != calls["pc_round"] or \
+                out["eq_fold"] != calls["pc_round"]:
+            raise AssertionError(f"classed rounds: {out}")
+    if spark:
+        out["evaluate_many_calls"] = calls["evaluate_many"]
+        out["evaluate_many"] = counts.get("evaluate_many", 0)
+        out["fq_dot_many"] = counts.get("fq_dot_many", 0)
+        out["hash_poly_calls"] = calls["hash_poly"]
+        out["hash_poly"] = counts.get("hash_poly", 0)
+        if calls["evaluate_many"] == 0 or calls["hash_poly"] == 0 or \
+                out["evaluate_many"] != calls["evaluate_many"] or \
+                out["fq_dot_many"] != calls["evaluate_many"] or \
+                out["hash_poly"] != calls["hash_poly"]:
+            raise AssertionError(f"SPARK's K1 calls: {out}")
+    return out
+
+
 def strict_round_loops(torch, stats):
     """Run every device-round loop (models/sumcheck.py _queue_rounds) on
     the card under torch.cuda.set_sync_debug_mode("error"): an operation
@@ -2066,8 +2243,7 @@ P9_KERNELS = {
     "K2": ("msm_batched",),
     "K4": ("sc_p1_round", "sc_p1_round_q", "sc_p1_round_p", "sc_p2_round",
            "sc_p2_round_w", "sc_p2_round_p"),
-    "K5": tuple(f"sc_pc_round_{f}{u}" for f in ("x", "xs", "q", "qs", "qi")
-                for u in ("", "_fused")),
+    "K5": ("sc_pc_round",),
     "K11": ("zk_round_tail",),
     "K12": ("point_sum",),
 }
@@ -2367,10 +2543,11 @@ def main() -> int:
     if "sumcheck" in built and "fq" in built:
         ps = ptxas_kernels(built["sumcheck"][1])
         emit({"phase": "ptxas_k4", "card": card,
-              "kernels": {**{k: v for k, v in ps.items()
-                             if k.startswith(("k_p1_round", "k_p2_round"))},
-                          "k_eq_evals": ptxas_kernels(
-                              built["fq"][1])["k_eq_evals"]}})
+              "kernels": {k: v for k, v in ps.items()
+                          if k.startswith(("k_p1_round", "k_p2_round",
+                                           "k_pc_round"))}})
+        emit({"phase": "ptxas_k1", "card": card,
+              "kernels": ptxas_kernels(built["fq"][1])})
 
     if "product" in built:
         emit({"phase": "ptxas_k6", "card": card,
@@ -2498,8 +2675,11 @@ def main() -> int:
                              ("dp_uniform", [256] * 4)):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        run = dp_run(num_proofs, 10, 10, dev, seed_tape=True)
+        with path_calls() as calls:
+            run = dp_run(num_proofs, 10, 10, dev, seed_tape=True)
         counts[path] = dict(kernels.launches)
+        structure = launch_structure(calls, counts[path],
+                                     path == "dp_skewed", False)
         if path == "dp_skewed":
             refs["dp_skewed"] = run["bytes"]
         expect_reject(run)
@@ -2540,7 +2720,8 @@ def main() -> int:
               "proof_bytes": len(run["bytes"]),
               "proof_bytes_compressed": run["compressed"],
               "stages_s": run["stages_s"], "max_memory_allocated": mem,
-              "launches": counts[path], "tamper_rejected": True,
+              "launches": counts[path], "launch_structure": structure,
+              "tamper_rejected": True,
               "traced_prove_s": again["prove_s"],
               **traced(tr, (("witness_commit", "witness_commit"),
                             ("prove", "R1CSProof::prove"),
@@ -2554,8 +2735,10 @@ def main() -> int:
     for path, log_cons in (("snark16", 16), ("snark", 20)):
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()
-        run = snark_run(log_cons, 10, dev, seed_tape=True)
+        with path_calls() as calls:
+            run = snark_run(log_cons, 10, dev, seed_tape=True)
         counts[path] = dict(kernels.launches)
+        structure = launch_structure(calls, counts[path], False, True)
         mem = torch.cuda.max_memory_allocated()
         expect_reject_snark(run, dev)
         row = {"phase": "snark", "log_cons": log_cons, "num_inputs": 10,
@@ -2571,7 +2754,8 @@ def main() -> int:
                    "sat": 47024, "eval": 133720, "total": 141768},
                "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest(),
                "max_memory_allocated": mem,
-               "launches": counts[path], "tamper_rejected": True}
+               "launches": counts[path], "launch_structure": structure,
+               "tamper_rejected": True}
         if path == "snark":
             raw = run["bytes"]
             del run
@@ -2595,8 +2779,12 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     kernels.reset_counts()
     tape = b"\x0f" * 32
-    run = zkvm_run(zk_args, zk_pa, dev, tape)
+    with path_calls() as calls:
+        run = zkvm_run(zk_args, zk_pa, dev, tape)
     counts["findmin"] = dict(kernels.launches)
+    findmin_structure = launch_structure(calls, counts["findmin"], True,
+                                         True)
+    findmin_largest = calls["largest"]
     mem = torch.cuda.max_memory_allocated()
     # the same proof with the host round loop on the card
     from spartan_parallel_tpu_torch.utils import timer
@@ -2654,7 +2842,8 @@ def main() -> int:
           "stages_s": run["stages_s"], "proof_bytes": len(run["bytes"]),
           "proof_bytes_compressed": run["compressed"],
           "max_memory_allocated": mem,
-          "launches": counts["findmin"], "tamper_rejected": True,
+          "launches": counts["findmin"],
+          "launch_structure": findmin_structure, "tamper_rejected": True,
           "traced_prove_s": traced_run["prove_s"],
           **traced(tr, (("input_commit", "input_commit"),
                         ("prove", "SNARK::prove"), ("all", None)))})
@@ -2670,10 +2859,31 @@ def main() -> int:
         rand_field((fb, fn), g8, dev), "findmin",
         extra={"shape_from": "the largest K2 launch of phase 8's "
                               "input_commit"})
-    k5 = [f"sc_pc_round_{form}{fused}" for form in ("x", "xs", "q", "qs", "qi")
-          for fused in ("", "_fused")]
-    if not all(counts["dp_skewed"].get(k) for k in k5):
-        raise AssertionError("K5 not launched in every form")
+    # K1's dot of a list of tables and K5's round of every class at
+    # find_min's largest shapes, read from phase 8's run
+    from spartan_parallel_tpu_torch.ops import fq
+
+    nt, K = findmin_largest["evaluate_many"]
+    many = rand_field((nt, K), g8, dev)
+    chis = rand_field((K,), g8, dev)
+    record("fq_dot_many", "fq.cu",
+           "spartan_parallel_tpu/models/sparse_mlpoly.py:364",
+           lambda: fq.dot_many(list(many), chis),
+           lambda: fq.dot_many_plain(list(many), chis), field_err,
+           ((nt + 1) * K + nt) * 64, nt * K * IMAD_FQ_MUL, path="findmin",
+           extra={"shape": [nt, K], "shape_from": "the largest "
+                  "_evaluate_many of phase 8"})
+    del many, chis
+    big = findmin_largest["pc_round"]
+    eqs = [rand_field((n,), g8, dev) for n in big["eq_lens"]]
+    classes = [tuple(rand_field(shape, g8, dev) for _ in range(3))
+               for shape in big["classes"]]
+    classes_row(record, "sc_pc_round_classes_findmin", *eqs, classes,
+                big["p0s"], big["Ss"], big["n_half"], big["mode"],
+                (rand_field((), g8, dev), *big["prev"]), "findmin",
+                extra={"shape_from": "the largest fused classed round of "
+                       "phase 8"})
+    del classes, eqs
     dp_modes = ("sc_p1_round_q", "sc_p1_round_p", "sc_p2_round_w",
                 "sc_p2_round_p")
     if not all(counts["dp_uniform"].get(k) for k in dp_modes):

@@ -20,7 +20,8 @@ traced, in both trees and both forms alike, so its seconds carry the
 events' cost and compare only with each other (chip_smoke.py's
 `prove_s` are untraced). Prints one JSON line: the card, the tree, each
 prove's seconds and kernel launches, K2's, K11's and fold_points'
-launches and ms inside the prove and every kernel's (`by_kernel`,
+launches and ms inside the prove, K1's and K5's ([launches, ms]: `k1`,
+`k5`) and every kernel's (`by_kernel`,
 summed over its launches; K2 also inside the witness commits: NIZK
 `witness_commit`, config 4's commit, find_min `input_commit`; the
 SNARK's eval proof, `R1CSEvalProof::prove`, apart) and every caller's
@@ -141,8 +142,16 @@ def main() -> int:
                     "proof_sha256": hashlib.sha256(run["bytes"]).hexdigest()}
     del run
     for cell in ("nizk", "dp_skewed", "dp_uniform", "findmin", "snark"):
-        out[cell]["launches"] = sum(
-            n for n, _ in out[cell]["by_kernel"]["prove"].values())
+        bk = out[cell]["by_kernel"]["prove"]
+        out[cell]["launches"] = sum(n for n, _ in bk.values())
+        # K1 (csrc/fq.cu; fq_powers is K7) and K5 (csrc/sumcheck.cu
+        # k_pc_round) summed
+        for key, mine in (("k1", lambda k: k.startswith("fq_") and k !=
+                           "fq_powers" or k in ("hash_poly", "eq_evals")),
+                          ("k5", lambda k: k.startswith("sc_pc_round"))):
+            picked = [v for k, v in bk.items() if mine(k)]
+            out[cell][key] = [sum(n for n, _ in picked),
+                              sum(t for _, t in picked)]
     # K2's bullet rows alone, at chip_smoke.py phase 2's shapes and points
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
     from spartan_parallel_tpu_torch.ops import msm

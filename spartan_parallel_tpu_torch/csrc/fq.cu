@@ -4,14 +4,35 @@
 // sum_reduce) and the limb primitives of ops/limbs.py, plus the binds of
 // models/dense_mlpoly.py (_bound_top, _bound_bot), ops/sumcheck.py
 // (fold_chain, p1_bind, p2_bind) and the L*Z contraction (_bound_L, _dot_dev),
-// and the eq table of models/dense_mlpoly.py _eq_evals_dev (k_eq_evals).
+// the eq table of models/dense_mlpoly.py _eq_evals_dev (k_eq_evals), the
+// per-polynomial evaluations of models/sparse_mlpoly.py (p.evaluate over
+// one eq table, :364-387: k_dot over a list of tables) and SPARK's hash
+// layer (models/sparse_mlpoly.py :289-293, k_hash).
 //
-// Bound on the card: the elementwise ops and bind move 64 B per operand per
-// element and do one Montgomery product (64 32x32-bit multiply-adds for the
-// product, 64 for the reduction); at 2^20 elements both bounds are tens of
-// microseconds, so launch overhead dominates. dot is a two-pass reduction:
-// a block sums a chunk of the reduced axis in shared memory, a second kernel
-// sums the per-block partials.
+// Bound on the card: bytes. The elementwise ops, the bind and the hash move
+// 64 B per operand per element and do one to two Montgomery products (64
+// 32x32-bit multiply-adds for the product, 64 for the reduction), below
+// the card's multiply rate at those bytes. A warp moves its 32 elements
+// through shared memory (tables.cuh warp_ld_el / warp_st_el), so every
+// global access is 16 bytes a lane with neighbouring lanes on neighbouring
+// addresses; the first design read a thread's element as 16 4-byte words,
+// 64 bytes apart across a warp. The elementwise kernels, the bind and the
+// hash launch at most the blocks resident at once, each warp striding over
+// chunks of 32 elements (on an H100 a few percent faster than one element
+// a thread for the product and the bind: PERF.md, K1's design).
+//
+// dot is one launch: a block sums a chunk of the reduced axis of one
+// output (chunks of 256 to 4096 terms, as many as fill the card), and the
+// last block of the output to take a ticket (atomicInc
+// after __threadfence, which wraps the ticket back to 0) sums the output's
+// partials. The same kernel takes a list of equal-length tables against one
+// eq table (fq_dot_many: one output a table, the table pointers passed by
+// value in the launch's parameters), so the evaluations of a list of
+// polynomials are one launch.
+//
+// The hash layer h = ts r^2 + val r + addr - rm is one pass over operands
+// that broadcast (each with its own strides); it can also write the
+// write-timestamp hash h + r^2 = hash(addr, val, ts + 1) from the same read.
 //
 // The eq table (k_eq_evals, csrc/eq.cuh) is one launch for any ell >= 1:
 // the JAX package builds it by doubling and, above 2^13 entries, as the
@@ -30,77 +51,188 @@
 
 #include "eq.cuh"
 #include "reduce.cuh"
+#include "tables.cuh"
 
+// the reduced axis of a dot splits into chunks of at most this many terms,
+// a block a chunk (ops/fq.py picks the chunk so that the grid covers the
+// card)
 #define DOT_CHUNK 4096
+#define K1_THREADS 128
+#define K1_WARPS (K1_THREADS / 32)
+// tables a fq_dot_many launch takes (their pointers are launch parameters)
+#define DOT_MANY_MAX 256
+// outputs of one dot launch whose partials a ticket can sum
+#define DOT_TICKETS 65536
+
+// the launch's chunks of 32 elements, one a warp at a time
+#define FOR_WARP_CHUNKS(c, n)                                               \
+  for (long long c = (long long)blockIdx.x * K1_WARPS + (threadIdx.x >> 5); \
+       (c) * 32 < (n); c += (long long)gridDim.x * K1_WARPS)
 
 template <int OP>
-__global__ void k_binop(const int32_t* __restrict__ a,
-                        const int32_t* __restrict__ b,
-                        int32_t* __restrict__ out, long long n, int bcast) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t x[8], y[8], z[8];
-  load16(a + 16 * i, x);
-  load16(b + (bcast ? 0 : 16 * i), y);
-  if (OP == 0)
-    fq_mul(z, x, y);
-  else if (OP == 1)
-    fq_add(z, x, y);
-  else
-    fq_sub(z, x, y);
-  store16(out + 16 * i, z);
+__global__ void __launch_bounds__(K1_THREADS)
+    k_binop(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+            int32_t* __restrict__ out, long long n, int bcast) {
+  __shared__ int4 tiles[K1_WARPS][128];
+  int4* tile = tiles[threadIdx.x >> 5];
+  uint32_t y[8];
+  if (bcast) load16(b, y);
+  FOR_WARP_CHUNKS(c, n) {
+    const long long i = c * 32 + (threadIdx.x & 31);
+    const bool ok = i < n;
+    uint32_t x[8], z[8];
+    warp_ld_el(tile, a + 16 * i, ok, x);
+    if (!bcast) warp_ld_el(tile, b + 16 * i, ok, y);
+    if (ok) {
+      if (OP == 0)
+        fq_mul(z, x, y);
+      else if (OP == 1)
+        fq_add(z, x, y);
+      else
+        fq_sub(z, x, y);
+    }
+    warp_st_el(tile, out + 16 * i, ok, z);
+  }
 }
 
 // out[o, i, in] = t[o, i, in] + r (t[o, i + n_half, in] - t[o, i, in]) for
 // i < n_half, and 0 for n_half <= i < n_out (the dead region of a
 // fixed-size sumcheck buffer).
-__global__ void k_bind(const int32_t* __restrict__ t,
-                       const int32_t* __restrict__ r,
-                       int32_t* __restrict__ out, long long outer,
-                       long long n_in, long long n_out, long long n_half,
-                       long long inner) {
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e >= outer * n_out * inner) return;
-  const long long in = e % inner;
-  const long long rest = e / inner;
-  const long long i = rest % n_out;
-  const long long o = rest / n_out;
-  uint32_t v[8];
-  if (i < n_half) {
-    uint32_t lo[8], hi[8], rr[8];
-    load16(t + 16 * ((o * n_in + i) * inner + in), lo);
-    load16(t + 16 * ((o * n_in + i + n_half) * inner + in), hi);
-    load16(r, rr);
-    fq_bind(v, lo, hi, rr);
-  } else {
-    zero8(v);
+__global__ void __launch_bounds__(K1_THREADS)
+    k_bind(const int32_t* __restrict__ t, const int32_t* __restrict__ r,
+           int32_t* __restrict__ out, long long outer, long long n_in,
+           long long n_out, long long n_half, long long inner) {
+  __shared__ int4 tiles[K1_WARPS][128];
+  int4* tile = tiles[threadIdx.x >> 5];
+  uint32_t rr[8];
+  load16(r, rr);
+  const long long n = outer * n_out * inner;
+  FOR_WARP_CHUNKS(c, n) {
+    const long long e = c * 32 + (threadIdx.x & 31);
+    const bool ok = e < n;
+    const long long in = e % inner, rest = e / inner;
+    const long long i = rest % n_out, o = rest / n_out;
+    const bool live = ok && i < n_half;
+    const long long lo = (o * n_in + i) * inner + in;
+    uint32_t l[8], h[8], v[8];
+    warp_ld_el(tile, t + 16 * lo, live, l);
+    warp_ld_el(tile, t + 16 * (lo + n_half * inner), live, h);
+    if (live)
+      fq_bind(v, l, h, rr);
+    else
+      zero8(v);
+    warp_st_el(tile, out + 16 * e, ok, v);
   }
-  store16(out + 16 * e, v);
 }
 
-// Partial sums of a[o, k, in] * b[o, k, in] over one DOT_CHUNK of k; b is
-// addressed through its own strides (0 where it is broadcast).
-__global__ void k_dot_partial(const int32_t* __restrict__ a,
-                              const int32_t* __restrict__ b,
-                              uint32_t* __restrict__ part, long long K,
-                              long long inner, long long sbo, long long sbk,
-                              long long sbi) {
+// fq_dot: output j = (o, in) of a (outer, K, inner) and b through its own
+// strides; fq_dot_many: output j is table tab[j] (K entries) against b.
+struct DotArgs {
+  const int32_t* a;
+  const int32_t* b;
+  long long K, inner, sbo, sbk, sbi, chunk;
+  uint32_t* part;  // outputs x gridDim.y partials of 8 words
+  int32_t* out;
+  int many;
+  const int32_t* tab[DOT_MANY_MAX];
+};
+
+__device__ unsigned dot_tickets[DOT_TICKETS];
+
+// block (j, y) sums chunk y of output j's products; one chunk: the sum is
+// the output, else the output's last block sums its partials
+__global__ void __launch_bounds__(REDUCE_THREADS)
+    k_dot(const __grid_constant__ DotArgs a) {
+  __shared__ int4 tiles[REDUCE_THREADS / 32][128];
   __shared__ uint32_t sh[REDUCE_THREADS * 8];
+  __shared__ bool last;
+  int4* tile = tiles[threadIdx.x >> 5];
   const long long j = blockIdx.x;
-  const long long o = j / inner, in = j % inner;
-  const long long k0 = (long long)blockIdx.y * DOT_CHUNK;
-  const long long k1 = K < k0 + DOT_CHUNK ? K : k0 + DOT_CHUNK;
+  const long long o = a.many ? 0 : j / a.inner, in = a.many ? 0 : j % a.inner;
+  const int32_t* pa = a.many ? a.tab[j] : a.a + 16 * (o * a.K * a.inner + in);
+  const long long sak = a.many ? 1 : a.inner;
+  const int32_t* pb = a.b + 16 * (o * a.sbo + in * a.sbi);
+  const long long k0 = (long long)blockIdx.y * a.chunk;
+  const long long k1 = a.K < k0 + a.chunk ? a.K : k0 + a.chunk;
   uint32_t acc[8];
   zero8(acc);
-  for (long long k = k0 + threadIdx.x; k < k1; k += blockDim.x) {
+  for (long long k = k0 + (threadIdx.x & ~31); k < k1; k += REDUCE_THREADS) {
+    const long long kk = k + (threadIdx.x & 31);
+    const bool ok = kk < k1;
     uint32_t x[8], y[8];
-    load16(a + 16 * ((o * K + k) * inner + in), x);
-    load16(b + 16 * (o * sbo + k * sbk + in * sbi), y);
-    fq_mul(x, x, y);
+    warp_ld_el(tile, pa + 16 * kk * sak, ok, x);
+    warp_ld_el(tile, pb + 16 * kk * a.sbk, ok, y);
+    if (ok) {
+      fq_mul(x, x, y);
+      fq_add(acc, acc, x);
+    }
+  }
+  block_sum(acc, sh);
+  const unsigned nc = gridDim.y;
+  if (nc == 1) {
+    if (threadIdx.x == 0) store16(a.out + 16 * j, acc);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    copy8(a.part + 8 * (j * nc + blockIdx.y), acc);
+    __threadfence();
+    last = atomicInc(&dot_tickets[j], nc - 1) == nc - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  zero8(acc);
+  for (unsigned y = threadIdx.x; y < nc; y += REDUCE_THREADS) {
+    const uint4* p = reinterpret_cast<const uint4*>(a.part + 8 * (j * nc + y));
+    const uint4 lo = __ldcg(p), hi = __ldcg(p + 1);
+    const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     fq_add(acc, acc, x);
   }
   block_sum(acc, sh);
-  if (threadIdx.x == 0) copy8(part + 8 * (j * gridDim.y + blockIdx.y), acc);
+  if (threadIdx.x == 0) store16(a.out + 16 * j, acc);
+}
+
+// SPARK's hash layer over (outer, n): each operand at o * s_o + i * s_i
+// elements (a stride 0 where it broadcasts); hw, when given, gets h + r^2
+struct HashArgs {
+  const int32_t *addr, *val, *ts;
+  long long sao, sai, svo, svi, sto, sti;
+  const int32_t *r2, *r1, *rm;
+  int32_t *h, *hw;
+  long long outer, n;
+};
+
+__global__ void __launch_bounds__(K1_THREADS) k_hash(const HashArgs a) {
+  __shared__ int4 tiles[K1_WARPS][128];
+  int4* tile = tiles[threadIdx.x >> 5];
+  uint32_t r2[8], r1[8], rm[8];
+  load16(a.r2, r2);
+  load16(a.r1, r1);
+  load16(a.rm, rm);
+  const long long total = a.outer * a.n;
+  FOR_WARP_CHUNKS(c, total) {
+    const long long e = c * 32 + (threadIdx.x & 31);
+    const bool ok = e < total;
+    const long long o = e / a.n, i = e % a.n;
+    uint32_t x[8], y[8], h[8];
+    warp_ld_el(tile, a.ts + 16 * (o * a.sto + i * a.sti), ok, x);
+    warp_ld_el(tile, a.val + 16 * (o * a.svo + i * a.svi), ok, y);
+    if (ok) {
+      fq_mul(h, x, r2);
+      fq_mul(y, y, r1);
+      fq_add(h, h, y);
+    }
+    warp_ld_el(tile, a.addr + 16 * (o * a.sao + i * a.sai), ok, x);
+    if (ok) {
+      fq_add(h, h, x);
+      fq_sub(h, h, rm);
+    }
+    warp_st_el(tile, a.h + 16 * e, ok, h);
+    if (a.hw != nullptr) {
+      if (ok) fq_add(h, h, r2);
+      warp_st_el(tile, a.hw + 16 * e, ok, h);
+    }
+  }
 }
 
 #define EQ_THREADS 256
@@ -150,14 +282,33 @@ __global__ void __launch_bounds__(EQ_THREADS)
   }
 }
 
-static unsigned blocks(long long n, int t) { return (unsigned)((n + t - 1) / t); }
+// blocks of K1_THREADS for n elements, at most the blocks of `fn` resident
+// at once (SMs x its blocks an SM, read once a kernel: `slot`)
+template <typename F>
+static unsigned k1_blocks(F fn, int slot, long long n) {
+  static int nsm = 0;
+  static int occ[5] = {0};
+  if (nsm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (occ[slot] == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[slot], fn, K1_THREADS,
+                                                  0);
+    if (occ[slot] < 1) occ[slot] = 1;
+  }
+  const long long nb = (n + K1_THREADS - 1) / K1_THREADS;
+  const long long cap = (long long)nsm * occ[slot];
+  return (unsigned)(nb < cap ? nb : cap);
+}
 
 template <int OP>
 static int binop(const int32_t* a, const int32_t* b, int32_t* out,
                  long long n, int bcast, void* stream) {
   if (n > 0)
-    k_binop<OP><<<blocks(n, 256), 256, 0, (cudaStream_t)stream>>>(a, b, out,
-                                                                  n, bcast);
+    k_binop<OP><<<k1_blocks(k_binop<OP>, OP, n), K1_THREADS, 0,
+                  (cudaStream_t)stream>>>(a, b, out, n, bcast);
   return (int)cudaGetLastError();
 }
 
@@ -183,22 +334,76 @@ int fq_bind_launch(const int32_t* t, const int32_t* r, int32_t* out,
                    long long n_half, long long inner, void* stream) {
   const long long total = outer * n_out * inner;
   if (total > 0)
-    k_bind<<<blocks(total, 256), 256, 0, (cudaStream_t)stream>>>(
-        t, r, out, outer, n_in, n_out, n_half, inner);
+    k_bind<<<k1_blocks(k_bind, 3, total), K1_THREADS, 0,
+             (cudaStream_t)stream>>>(t, r, out, outer, n_in, n_out, n_half,
+                                     inner);
   return (int)cudaGetLastError();
 }
 
-// part: outer * inner * ceil(K / DOT_CHUNK) scratch values of 8 words.
+static int dot_go(DotArgs& a, long long outputs, cudaStream_t s) {
+  if (a.chunk < 1 || a.chunk > DOT_CHUNK) return -1;
+  const long long nchunks = (a.K + a.chunk - 1) / a.chunk;
+  if (outputs < 1 || nchunks < 1) return 0;
+  if (nchunks > 65535 || outputs > 0x7fffffffLL ||
+      (nchunks > 1 && outputs > DOT_TICKETS))
+    return -1;
+  k_dot<<<dim3((unsigned)outputs, (unsigned)nchunks), REDUCE_THREADS, 0,
+          s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// part: outer * inner * ceil(K / chunk) scratch values of 8 words.
 int fq_dot_launch(const int32_t* a, const int32_t* b, uint32_t* part,
                   int32_t* out, long long outer, long long K, long long inner,
-                  long long sbo, long long sbk, long long sbi, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long nchunks = (K + DOT_CHUNK - 1) / DOT_CHUNK;
-  dim3 grid((unsigned)(outer * inner), (unsigned)nchunks);
-  k_dot_partial<<<grid, REDUCE_THREADS, 0, s>>>(a, b, part, K, inner, sbo,
-                                                sbk, sbi);
-  reduce_partials<<<(unsigned)(outer * inner), REDUCE_THREADS, 0, s>>>(
-      part, nchunks, out);
+                  long long sbo, long long sbk, long long sbi,
+                  long long chunk, void* stream) {
+  DotArgs d{};
+  d.a = a;
+  d.b = b;
+  d.K = K;
+  d.inner = inner;
+  d.sbo = sbo;
+  d.sbk = sbk;
+  d.sbi = sbi;
+  d.chunk = chunk;
+  d.part = part;
+  d.out = out;
+  d.many = 0;
+  return dot_go(d, outer * inner, (cudaStream_t)stream);
+}
+
+// tabs: n host pointers to (K, 16) tables; b the (K, 16) table they are
+// all dotted with; out (n, 16); part: n * ceil(K / chunk) x 8 words.
+int fq_dot_many_launch(const int32_t* const* tabs, int n, const int32_t* b,
+                       uint32_t* part, int32_t* out, long long K,
+                       long long chunk, void* stream) {
+  if (n < 0 || n > DOT_MANY_MAX) return -1;
+  DotArgs d{};
+  d.b = b;
+  d.K = K;
+  d.inner = 1;
+  d.sbk = 1;
+  d.chunk = chunk;
+  d.part = part;
+  d.out = out;
+  d.many = 1;
+  for (int j = 0; j < n; ++j) d.tab[j] = tabs[j];
+  return dot_go(d, n, (cudaStream_t)stream);
+}
+
+// strides: the 6 element strides (addr o, i; val o, i; ts o, i); hw may be
+// null.
+int hash_poly_launch(const int32_t* addr, const int32_t* val,
+                     const int32_t* ts, const long long* strides,
+                     const int32_t* r2, const int32_t* r1, const int32_t* rm,
+                     int32_t* h, int32_t* hw, long long outer, long long n,
+                     void* stream) {
+  const HashArgs a{addr, val, ts, strides[0], strides[1], strides[2],
+                   strides[3], strides[4], strides[5], r2, r1, rm, h, hw,
+                   outer, n};
+  if (outer * n > 0)
+    k_hash<<<k1_blocks(k_hash, 4, outer * n), K1_THREADS, 0,
+             (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -30,78 +30,28 @@
 // (8 binds, 6 evaluations), below the card's multiply rate at these bytes.
 //
 // K5, the size-classed phase 1 (k_pc_round), replaces ops/sumcheck.py
-// pc_evals / pc_step for one q-size class of instances: its (P_c, Q_c, X)
-// tables sit at p offset p0 and q stride S of the shared eq tables, which
-// it only reads (eq_fold binds them once per round for every class, where
-// K4 binds its own eq table in the owner threads). An active round binds
-// x or q as K4 does; an inactive q round (the class is bound on q, one
-// live entry per instance) evaluates with eq_q = (tq[0], tq[n_half]) and a
-// zero high half, and its fused bind is the (1 - r) scale.
-//
-// K5 keeps the first design: one thread per entry of the full buffer, the
-// dead region written with zeros, one block sum per 256 entries.
+// pc_evals / pc_step: a round of every q-size class of instances in one
+// launch. Class c's (P_c, Q_c, X) tables sit at p offset p0 and q stride S
+// of the shared eq tables, which it only reads (eq_fold binds them once a
+// round for every class, one K1 launch). The launch takes a descriptor a
+// class (its tables, strides, p0, S, n_half, the previous round's bind)
+// in its parameters; the classes' blocks split the resident grid in
+// proportion to their live pairs, each block on a contiguous range of one
+// class's pairs, and the last block to take a ticket sums each class's
+// partials into its row of the (classes, 3, 16) evaluations. As in K4 the
+// grid and the bytes follow the live pairs and the dead region is not
+// written: a bind (the previous round's challenge) writes new tables of
+// the live length. The bind of each class is the one its previous round
+// asks for: along the same axis (x, or q while the class is active), the
+// axis change x -> q (each new entry from two x entries), the class's last
+// q variable at its change of activity, or, inactive, the (1 - r) scale.
+// An active round pairs entries i and i + n_half along x or q; an
+// inactive q round (the class bound on q, one live entry per instance)
+// evaluates with eq_q = (tq[0], tq[n_half]) and a zero high half.
 #include <cuda_runtime.h>
 
 #include "reduce.cuh"
 #include "tables.cuh"
-
-// value of a table at pair index ii, bound to r when bind is set:
-// T[ii] + r (T[ii + nhp] - T[ii])
-__device__ __forceinline__ void pair_val(uint32_t* v, const int32_t* T,
-                                         long long idx, long long step,
-                                         int bind, const uint32_t* r) {
-  load16(T + 16 * idx, v);
-  if (bind) {
-    uint32_t h[8];
-    load16(T + 16 * (idx + step), h);
-    fq_bind(v, v, h, r);
-  }
-}
-
-// e (B C - D) at t = 0, 2, 3 from the pair's (lo, hi) values; the sums
-// s0, s2, s3 are overwritten.
-__device__ __forceinline__ void eval3(uint32_t* s0, uint32_t* s2,
-                                      uint32_t* s3,
-                                      const uint32_t* el, const uint32_t* eh,
-                                      const uint32_t* Bl, const uint32_t* Bh,
-                                      const uint32_t* Cl, const uint32_t* Ch,
-                                      const uint32_t* Dl, const uint32_t* Dh) {
-  uint32_t b[8], c[8], d[8], e[8], g[8];
-  // t = 0
-  fq_mul(g, Bl, Cl);
-  fq_sub(g, g, Dl);
-  fq_mul(s0, g, el);
-  // t = 2
-  uint32_t b2[8], c2[8], d2[8], e2[8];
-  fq_ext2(b2, Bl, Bh);
-  fq_ext2(c2, Cl, Ch);
-  fq_ext2(d2, Dl, Dh);
-  fq_ext2(e2, el, eh);
-  fq_mul(g, b2, c2);
-  fq_sub(g, g, d2);
-  fq_mul(s2, g, e2);
-  // t = 3
-  fq_ext3(b, b2, Bl, Bh);
-  fq_ext3(c, c2, Cl, Ch);
-  fq_ext3(d, d2, Dl, Dh);
-  fq_ext3(e, e2, el, eh);
-  fq_mul(g, b, c);
-  fq_sub(g, g, d);
-  fq_mul(s3, g, e);
-}
-
-__device__ void finish_block(uint32_t* s0, uint32_t* s2, uint32_t* s3,
-                             uint32_t* part) {
-  __shared__ uint32_t sh[REDUCE_THREADS * 8];
-  block_sum(s0, sh);
-  block_sum(s2, sh);
-  block_sum(s3, sh);
-  if (threadIdx.x == 0) {
-    copy8(part + 8 * (0 * gridDim.x + blockIdx.x), s0);
-    copy8(part + 8 * (1 * gridDim.x + blockIdx.x), s2);
-    copy8(part + 8 * (2 * gridDim.x + blockIdx.x), s3);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // K4: a round's grid and bytes follow its live pairs
@@ -180,9 +130,8 @@ __device__ __forceinline__ void k4_start(K4Sums& s, uint32_t (*ln)[8]) {
   }
 }
 
-// the block's three sums into part[t * gridDim.x + blockIdx.x], or, from a
-// grid of one block, into out (3, 16 limbs) with no second pass
-__device__ void k4_block_sum(K4Sums& s, uint32_t* part, int32_t* out) {
+// the block's three sums into tot (thread 0's)
+__device__ void k4_block_total(K4Sums& s, uint32_t (*tot)[8]) {
   __shared__ uint32_t sh[3][K4_THREADS / 32][8];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -200,12 +149,22 @@ __device__ void k4_block_sum(K4Sums& s, uint32_t* part, int32_t* out) {
       uint32_t v[8];
       if (lane < K4_THREADS / 32) copy8(v, sh[t][lane]); else zero8(v);
       warp_sum8(v);
-      if (lane == 0) {
-        if (gridDim.x == 1)
-          store16(out + 16 * t, v);
-        else
-          copy8(part + 8 * (t * gridDim.x + blockIdx.x), v);
-      }
+      if (lane == 0) copy8(tot[t], v);
+    }
+  }
+}
+
+// the block's three sums into part[t * gridDim.x + blockIdx.x], or, from a
+// grid of one block, into out (3, 16 limbs) with no second pass
+__device__ void k4_block_sum(K4Sums& s, uint32_t* part, int32_t* out) {
+  uint32_t tot[3][8];
+  k4_block_total(s, tot);
+  if (threadIdx.x == 0) {
+    for (int t = 0; t < 3; ++t) {
+      if (gridDim.x == 1)
+        store16(out + 16 * t, tot[t]);
+      else
+        copy8(part + 8 * (t * gridDim.x + blockIdx.x), tot[t]);
     }
   }
 }
@@ -368,109 +327,186 @@ __global__ void __launch_bounds__(K4_THREADS) k_p2_round(P2Args a) {
   k4_block_sum(s, a.part, a.out);
 }
 
-// K5: one q-size class. Tables (Pc, Qn, Xn), at instance offset p0 and q
-// stride S of the global eq tables tp, tq, tx (read-only). axis 2 binds x,
-// axis 1 binds q; inactive (axis 1 only) takes Qn = Xn = 1.
-__global__ void k_pc_round(const int32_t* __restrict__ tp,
-                           const int32_t* __restrict__ tq,
-                           const int32_t* __restrict__ tx, Tab B, Tab C,
-                           Tab D, long long Pc, long long Qn, long long Xn,
-                           int axis, int active, long long n_half,
-                           long long p0, long long S, int bind,
-                           const int32_t* __restrict__ r,
-                           uint32_t* __restrict__ part) {
-  uint32_t s0[8], s2[8], s3[8];
-  zero8(s0);
-  zero8(s2);
-  zero8(s3);
-  const long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (e < Pc * Qn * Xn) {
-    uint32_t rr[8];
-    if (bind) load16(r, rr);
-    uint32_t Bl[8], Bh[8], Cl[8], Ch[8], Dl[8], Dh[8], el[8], eh[8], W[8],
-        f[8];
-    bool live = true;
-    if (!active) {
-      // T' = T - r T = (1 - r) T; the high half of the q pair is zero
-      load16(B.src + 16 * e, Bl);
-      load16(C.src + 16 * e, Cl);
-      load16(D.src + 16 * e, Dl);
-      if (bind) {
-        fq_mul(f, Bl, rr);
-        fq_sub(Bl, Bl, f);
-        fq_mul(f, Cl, rr);
-        fq_sub(Cl, Cl, f);
-        fq_mul(f, Dl, rr);
-        fq_sub(Dl, Dl, f);
-        store16(B.dst + 16 * e, Bl);
-        store16(C.dst + 16 * e, Cl);
-        store16(D.dst + 16 * e, Dl);
-      }
-      zero8(Bh);
-      zero8(Ch);
-      zero8(Dh);
-      load16(tq, el);
-      load16(tq + 16 * n_half, eh);
-      load16(tp + 16 * (p0 + e), W);
-      load16(tx, f);
-    } else {
-      const long long n_axis = axis == 1 ? Qn : Xn;
-      const long long inner = axis == 1 ? Xn : 1;
-      const long long in = e % inner, rest = e / inner;
-      const long long i = rest % n_axis, o = rest / n_axis;
-      const long long nhp = 2 * n_half;
-      live = i < n_half;
-      if (live) {
-        const long long lo = (o * n_axis + i) * inner + in;
-        const long long hi = lo + n_half * inner;
-        const long long step = nhp * inner;
-        pair_val(Bl, B.src, lo, step, bind, rr);
-        pair_val(Bh, B.src, hi, step, bind, rr);
-        pair_val(Cl, C.src, lo, step, bind, rr);
-        pair_val(Ch, C.src, hi, step, bind, rr);
-        pair_val(Dl, D.src, lo, step, bind, rr);
-        pair_val(Dh, D.src, hi, step, bind, rr);
-        if (bind) {
-          store16(B.dst + 16 * lo, Bl);
-          store16(B.dst + 16 * hi, Bh);
-          store16(C.dst + 16 * lo, Cl);
-          store16(C.dst + 16 * hi, Ch);
-          store16(D.dst + 16 * lo, Dl);
-          store16(D.dst + 16 * hi, Dh);
-        }
-        if (axis == 2) {  // o = p Qn + j
-          load16(tx + 16 * i, el);
-          load16(tx + 16 * (i + n_half), eh);
-          load16(tp + 16 * (p0 + o / Qn), W);
-          load16(tq + 16 * (S * (o % Qn)), f);
-        } else {  // o = p
-          load16(tq + 16 * (S * i), el);
-          load16(tq + 16 * (S * (i + n_half)), eh);
-          load16(tp + 16 * (p0 + o), W);
-          load16(tx + 16 * in, f);
-        }
-      } else if (bind && i >= nhp) {
-        const long long at = (o * n_axis + i) * inner + in;
-        uint32_t z[8];
-        zero8(z);
-        store16(B.dst + 16 * at, z);
-        store16(C.dst + 16 * at, z);
-        store16(D.dst + 16 * at, z);
-      }
-    }
-    if (live) {
-      fq_mul(W, W, f);
-      eval3(s0, s2, s3, el, eh, Bl, Bh, Cl, Ch, Dl, Dh);
-      fq_mul(s0, s0, W);
-      fq_mul(s2, s2, W);
-      fq_mul(s3, s3, W);
-    }
+// ---------------------------------------------------------------------------
+// K5: every class of a classed phase-1 round in one launch
+// ---------------------------------------------------------------------------
+#define PC_MAX_CLASSES 16
+// blocks of k_pc_round an SM its register cap is set for: K4 phase 1's 4
+// (of 2 to 8 tried, none ran K5's rows faster)
+#define PC_MIN_BLOCKS K4_P1_MIN_BLOCKS
+// values of one class descriptor from the host (pc_round_launch)
+#define PC_DESC 18
+
+struct PcClass {
+  const int32_t *B, *C, *D;  // the tables read, through (sp, sq, sx)
+  int32_t *nB, *nC, *nD;     // with a bind: the new (Pc, Qn, Xn) tables
+  long long sp, sq, sx;
+  unsigned Pc, Qn, Xn;  // the dims evaluated (the new tables' with a bind)
+  unsigned p0, S;
+  unsigned nh;  // active: pairs (i, i + nh); inactive: eq_q's high entry
+  unsigned h;   // the bind pairs entry i with i + h along its axis
+  int bax;      // bind: 0 none, 1 q, 2 x, 3 the (1 - r) scale
+  int active;
+  unsigned blk0, nblk, npairs;
+};
+
+struct PcArgs {
+  const int32_t *tp, *tq, *tx;
+  const int32_t* r;
+  uint32_t* part;  // 3 x 8 words a block
+  int32_t* out;    // (n, 3, 16)
+  int n;
+  PcClass c[PC_MAX_CLASSES];
+};
+
+// blocks of the running k_pc_round launch that have written their partial
+// (one launch at a time on a device: the rounds are sequential)
+__device__ unsigned pc_ticket;
+
+// entry (p, j, k) of the table evaluated: T's entry, or with a bind the
+// bound value of T's entries (p, j, k) and (p, j, k) + h along the bind's
+// axis (zero for the scale), stored to the new table. An x round's bind
+// is along x; a q round's is the class's own (q, x or the scale).
+template <int AXIS, bool BIND>
+__device__ __forceinline__ void pc_val(uint32_t* v, const PcClass& c,
+                                       const int32_t* T, int32_t* nT,
+                                       unsigned p, unsigned j, unsigned k,
+                                       const uint32_t* r) {
+  const size_t at = p * c.sp + j * c.sq + k * c.sx;
+  ld_el(v, T + 16 * at);
+  if (BIND) {
+    uint32_t hi[8];
+    if (AXIS == 1 && c.bax == 3)
+      zero8(hi);
+    else
+      ld_el(hi, T + 16 * (at + c.h * (AXIS == 1 && c.bax == 1 ? c.sq
+                                                                : c.sx)));
+    fq_bind(v, v, hi, r);
+    st_el(nT + 16 * (((size_t)p * c.Qn + j) * c.Xn + k), v);
   }
-  finish_block(s0, s2, s3, part);
 }
 
-static unsigned blocks(long long n) {
-  return (unsigned)((n + REDUCE_THREADS - 1) / REDUCE_THREADS);
+// A classed round along AXIS (2 x, 1 q), every class bound first with
+// BIND: the block's class, its range of the class's pairs, their
+// evaluations summed a line at a time as in K4.
+template <int AXIS, bool BIND>
+__global__ void __launch_bounds__(K4_THREADS, PC_MIN_BLOCKS)
+    k_pc_round(const __grid_constant__ PcArgs a) {
+  int ci = 0;
+  while (ci + 1 < a.n && blockIdx.x >= a.c[ci + 1].blk0) ++ci;
+  const PcClass& c = a.c[ci];
+  uint32_t rr[8];
+  if (BIND) load16(a.r, rr);
+  __shared__ K4Sums s;
+  uint32_t ln[3][8], W[8];
+  k4_start(s, ln);
+  zero8(W);
+  unsigned key = 0xffffffffu;
+  const unsigned per = (c.npairs + c.nblk - 1) / c.nblk;
+  const unsigned e0 = (blockIdx.x - c.blk0) * per;
+  const unsigned e1 = min(e0 + per, c.npairs);
+  for (unsigned e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    uint32_t x[3][8], el[8], eh[8];
+    unsigned p, line;
+    const int32_t* fac;  // the line's second eq factor (tp's is p's)
+    {
+      uint32_t Bl[8], Bh[8], Cl[8], Ch[8];
+      uint32_t Dl[8], Dh[8];
+      if (AXIS == 1 && !c.active) {
+        p = e;
+        line = p;
+        pc_val<AXIS, BIND>(Bl, c, c.B, c.nB, p, 0, 0, rr);
+        pc_val<AXIS, BIND>(Cl, c, c.C, c.nC, p, 0, 0, rr);
+        pc_val<AXIS, BIND>(Dl, c, c.D, c.nD, p, 0, 0, rr);
+        zero8(Bh);
+        zero8(Ch);
+        zero8(Dh);
+        load16(a.tq, el);
+        load16(a.tq + 16 * (size_t)c.nh, eh);
+        fac = a.tx;
+      } else if (AXIS == 2) {
+        const unsigned i = e % c.nh, o = e / c.nh, j = o % c.Qn;
+        p = o / c.Qn;
+        line = o;
+        pc_val<AXIS, BIND>(Bl, c, c.B, c.nB, p, j, i, rr);
+        pc_val<AXIS, BIND>(Bh, c, c.B, c.nB, p, j, i + c.nh, rr);
+        pc_val<AXIS, BIND>(Cl, c, c.C, c.nC, p, j, i, rr);
+        pc_val<AXIS, BIND>(Ch, c, c.C, c.nC, p, j, i + c.nh, rr);
+        pc_val<AXIS, BIND>(Dl, c, c.D, c.nD, p, j, i, rr);
+        pc_val<AXIS, BIND>(Dh, c, c.D, c.nD, p, j, i + c.nh, rr);
+        ld_el(el, a.tx + 16 * (size_t)i);
+        ld_el(eh, a.tx + 16 * (size_t)(i + c.nh));
+        fac = a.tq + 16 * (size_t)c.S * j;
+      } else {
+        const unsigned k = e % c.Xn, rest = e / c.Xn, i = rest % c.nh;
+        p = rest / c.nh;
+        line = p * c.Xn + k;
+        pc_val<AXIS, BIND>(Bl, c, c.B, c.nB, p, i, k, rr);
+        pc_val<AXIS, BIND>(Bh, c, c.B, c.nB, p, i + c.nh, k, rr);
+        pc_val<AXIS, BIND>(Cl, c, c.C, c.nC, p, i, k, rr);
+        pc_val<AXIS, BIND>(Ch, c, c.C, c.nC, p, i + c.nh, k, rr);
+        pc_val<AXIS, BIND>(Dl, c, c.D, c.nD, p, i, k, rr);
+        pc_val<AXIS, BIND>(Dh, c, c.D, c.nD, p, i + c.nh, k, rr);
+        ld_el(el, a.tq + 16 * (size_t)c.S * i);
+        ld_el(eh, a.tq + 16 * (size_t)c.S * (i + c.nh));
+        fac = a.tx + 16 * (size_t)k;
+      }
+      k4_prod3(x, Bl, Bh, Cl, Ch);
+      k4_apply3<true>(x, Dl, Dh);
+    }
+    k4_apply3<false>(x, el, eh);
+    if (line != key) {
+      if (key != 0xffffffffu) k4_flush(s, ln, W);
+      key = line;
+      uint32_t f[8];
+      load16(a.tp + 16 * (size_t)(c.p0 + p), W);
+      load16(fac, f);
+      fq_mul(W, W, f);
+    }
+    add3(ln, x);
+  }
+  if (key != 0xffffffffu) k4_flush(s, ln, W);
+  __shared__ bool last;
+  uint32_t tot[3][8];
+  k4_block_total(s, tot);
+  if (gridDim.x == 1) {
+    if (threadIdx.x == 0)
+      for (int t = 0; t < 3; ++t) store16(a.out + 16 * t, tot[t]);
+    return;
+  }
+  if (threadIdx.x == 0) {
+    for (int t = 0; t < 3; ++t)
+      copy8(a.part + 8 * (3 * blockIdx.x + t), tot[t]);
+    __threadfence();
+    last = atomicInc(&pc_ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // each class's partials, all threads over its blocks
+  for (int q = 0; q < a.n; ++q) {
+    const unsigned b0 = a.c[q].blk0, nb = a.c[q].nblk;
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      uint32_t v[8];
+      zero8(v);
+      for (unsigned u = threadIdx.x; u < nb; u += K4_THREADS) {
+        const uint4* pp =
+            reinterpret_cast<const uint4*>(a.part + 8 * (3 * (b0 + u) + t));
+        const uint4 lo = __ldcg(pp), hi = __ldcg(pp + 1);
+        const uint32_t y[8] = {lo.x, lo.y, lo.z, lo.w,
+                               hi.x, hi.y, hi.z, hi.w};
+        fq_add(v, v, y);
+      }
+#pragma unroll
+      for (int w = 0; w < 8; ++w) s[t][w][threadIdx.x] = v[w];
+    }
+    __syncthreads();
+    k4_block_total(s, tot);
+    if (threadIdx.x == 0)
+      for (int t = 0; t < 3; ++t) store16(a.out + 16 * (3 * q + t), tot[t]);
+    __syncthreads();
+  }
 }
 
 // K4's grid: one block per K4_THREADS pairs, at most the blocks that are
@@ -558,21 +594,84 @@ int p2_round_launch(const int32_t* ep, const int32_t* ABC, const int32_t* Z,
   return (int)cudaGetLastError();
 }
 
-// part: 3 * ceil(Pc Qn Xn / 256) scratch values of 8 words; out (3, 16).
+// desc: n x PC_DESC values a class (PcHost order): the tables read and
+// the new ones, the read strides, the evaluated dims, p0, S, n_half, the
+// bind's offset and kind, active. out (n, 3, 16); part: 3 x 8 words for
+// each of at most K4_MAX_BLOCKS + n blocks. axis: 2 x, 1 q.
 int pc_round_launch(const int32_t* tp, const int32_t* tq, const int32_t* tx,
-                    const int32_t* B, const int32_t* C, const int32_t* D,
-                    int32_t* nB, int32_t* nC, int32_t* nD, long long Pc,
-                    long long Qn, long long Xn, int axis, int active,
-                    long long n_half, long long p0, long long S, int bind,
-                    const int32_t* r, uint32_t* part, int32_t* out,
-                    void* stream) {
+                    const int32_t* r, const long long* desc, int n, int axis,
+                    uint32_t* part, int32_t* out, void* stream) {
+  if (n < 1 || n > PC_MAX_CLASSES || (axis != 1 && axis != 2)) return -1;
+  PcArgs a{};
+  a.tp = tp;
+  a.tq = tq;
+  a.tx = tx;
+  a.r = r;
+  a.part = part;
+  a.out = out;
+  a.n = n;
+  unsigned long long total = 0;
+  for (int i = 0; i < n; ++i) {
+    const long long* d = desc + PC_DESC * i;
+    PcClass& c = a.c[i];
+    c.B = (const int32_t*)d[0];
+    c.C = (const int32_t*)d[1];
+    c.D = (const int32_t*)d[2];
+    c.nB = (int32_t*)d[3];
+    c.nC = (int32_t*)d[4];
+    c.nD = (int32_t*)d[5];
+    c.sp = d[6];
+    c.sq = d[7];
+    c.sx = d[8];
+    c.Pc = (unsigned)d[9];
+    c.Qn = (unsigned)d[10];
+    c.Xn = (unsigned)d[11];
+    c.p0 = (unsigned)d[12];
+    c.S = (unsigned)d[13];
+    c.nh = (unsigned)d[14];
+    c.h = (unsigned)d[15];
+    c.bax = (int)d[16];
+    c.active = (int)d[17];
+    if ((c.bax != 0) != (a.c[0].bax != 0) || (axis == 2 && c.bax > 2) ||
+        (axis == 2 && !c.active))
+      return -1;
+    const unsigned long long np =
+        !c.active ? c.Pc
+                  : (unsigned long long)c.Pc * c.nh * (axis == 2 ? c.Qn : c.Xn);
+    if (np < 1 || np >= (1ull << 31)) return -1;
+    c.npairs = (unsigned)np;
+    total += np;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  const unsigned nb = blocks(Pc * Qn * Xn);
-  k_pc_round<<<nb, REDUCE_THREADS, 0, s>>>(tp, tq, tx, Tab{B, nB}, Tab{C, nC},
-                                           Tab{D, nD}, Pc, Qn, Xn, axis,
-                                           active, n_half, p0, S, bind, r,
-                                           part);
-  reduce_partials<<<3, REDUCE_THREADS, 0, s>>>(part, nb, out);
+  const bool bind = a.c[0].bax != 0;
+  void (*fn)(const PcArgs) =
+      axis == 2 ? (bind ? k_pc_round<2, true> : k_pc_round<2, false>)
+                : (bind ? k_pc_round<1, true> : k_pc_round<1, false>);
+  static int nsm = 0, occ[4] = {0, 0, 0, 0};
+  if (nsm == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int& o = occ[2 * (axis - 1) + (bind ? 1 : 0)];
+  if (o == 0) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&o, fn, K4_THREADS, 0);
+    if (o < 1) o = 1;
+  }
+  unsigned long long nb = (total + K4_THREADS - 1) / K4_THREADS;
+  if (nb > (unsigned long long)nsm * o) nb = (unsigned long long)nsm * o;
+  if (nb > K4_MAX_BLOCKS) nb = K4_MAX_BLOCKS;
+  unsigned blk = 0;
+  for (int i = 0; i < n; ++i) {
+    PcClass& c = a.c[i];
+    unsigned long long want = nb * c.npairs / total;
+    const unsigned long long most = (c.npairs + K4_THREADS - 1) / K4_THREADS;
+    if (want > most) want = most;
+    c.blk0 = blk;
+    c.nblk = want < 1 ? 1u : (unsigned)want;
+    blk += c.nblk;
+  }
+  fn<<<blk, K4_THREADS, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

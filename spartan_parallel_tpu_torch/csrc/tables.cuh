@@ -32,6 +32,66 @@ __device__ __forceinline__ void st_el(int32_t* p, const uint32_t* v) {
                      (int)(v[2 * k + 1] >> 16));
 }
 
+// A warp's 32 elements, one a lane at any per-lane address, moved through
+// shared memory so that every global access is 16 bytes a lane with
+// neighbouring lanes on neighbouring 16 bytes wherever the elements are
+// contiguous: in access k, lane l moves quarter l & 3 of the element of
+// lane 8 k + l / 4 (whose address it takes by a shuffle). The tile is the
+// warp's 32 x 64 bytes; quarter q of element e sits at 4 e + (q ^ (e / 2
+// & 3)), which keeps both the staging and a lane's reads of its own
+// element free of bank conflicts. Every lane of the warp takes part;
+// `ok` says whether the lane's element exists.
+__device__ __forceinline__ int tile_at(int e, int q) {
+  return 4 * e + (q ^ ((e >> 1) & 3));
+}
+
+__device__ __forceinline__ void warp_ld_el(int4* tile, const int32_t* p,
+                                           bool ok, uint32_t* v) {
+  const int lane = threadIdx.x & 31;
+  const unsigned live = __ballot_sync(0xffffffffu, ok);
+  const unsigned long long mine = (unsigned long long)p;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = 8 * k + (lane >> 2), q = lane & 3;
+    const unsigned long long at = __shfl_sync(0xffffffffu, mine, e);
+    if ((live >> e) & 1)
+      tile[tile_at(e, q)] = __ldg(reinterpret_cast<const int4*>(at) + q);
+  }
+  __syncwarp();
+  if (ok) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int4 x = tile[tile_at(lane, q)];
+      v[2 * q] = (uint32_t)x.x | ((uint32_t)x.y << 16);
+      v[2 * q + 1] = (uint32_t)x.z | ((uint32_t)x.w << 16);
+    }
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ void warp_st_el(int4* tile, int32_t* p, bool ok,
+                                           const uint32_t* v) {
+  const int lane = threadIdx.x & 31;
+  const unsigned live = __ballot_sync(0xffffffffu, ok);
+  const unsigned long long mine = (unsigned long long)p;
+  if (ok) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      tile[tile_at(lane, q)] =
+          make_int4((int)(v[2 * q] & 0xffffu), (int)(v[2 * q] >> 16),
+                    (int)(v[2 * q + 1] & 0xffffu), (int)(v[2 * q + 1] >> 16));
+  }
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int e = 8 * k + (lane >> 2), q = lane & 3;
+    const unsigned long long at = __shfl_sync(0xffffffffu, mine, e);
+    if ((live >> e) & 1)
+      reinterpret_cast<int4*>(at)[q] = tile[tile_at(e, q)];
+  }
+  __syncwarp();
+}
+
 // entry idx of T; with BIND, bound to r: T[idx] + r (T[idx + step] - T[idx])
 template <bool BIND>
 __device__ __forceinline__ void tab_val(uint32_t* v, const int32_t* T,

@@ -11,8 +11,11 @@ byte for byte.
     per-address occurrence count); the dense representation is built from
     whole numpy arrays, then R-scaled on the device (one K1 product);
   * a deref is a torch.index_select of the eq table on the device;
-  * the hash layer is K1 field products over stacked (B, n, 16) tables
-    (counted as hash_poly);
+  * the hash layer is one K1 launch over stacked (B, n, 16) tables
+    (csrc/fq.cu k_hash, counted as hash_poly), the write timestamps' hash
+    written from the read timestamps' read (h + r^2);
+  * a list of polynomials is evaluated at one point in one K1 launch
+    (fq.dot_many, counted as evaluate_many);
   * the product circuits of a network grow all their layers in one K6
     launch per layer (models/product_tree.py): 4 * batch_size ops
     circuits, 4 memory circuits;
@@ -25,12 +28,15 @@ card unless `multi_commit` was given device="cpu"); verifiers take
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
 
 from ..core import device as _device
 from ..core.field import Scalar
-from ..ops import fq
+from ..ops import fq, kernels
 from ..ops import limbs as lb
 from ..utils.errors import ProofVerifyError
 from ..utils.timer import Timer
@@ -80,10 +86,12 @@ def _cumcount(addr: np.ndarray, base: np.ndarray) -> np.ndarray:
 
 
 def _evaluate_many(polys, r) -> list:
-    """Each poly's evaluation at r, from one eq table (K1 dots)."""
+    """Each poly's evaluation at r, from one eq table: one K1 launch for
+    the lot (fq.dot_many, counted as evaluate_many), read back in one
+    copy."""
     chis = EqPolynomial(list(r)).evals_dev(polys[0].Zm.device)
-    return mont_to_scalars(torch.stack([fq.dot(p.Zm, chis, 0)
-                                        for p in polys]))
+    return mont_to_scalars(fq.dot_many([p.Zm for p in polys], chis,
+                                       counter="evaluate_many"))
 
 
 class AddrTimestamps:
@@ -312,16 +320,54 @@ def multi_commit(sparse_polys, gens: SparseMatPolyCommitmentGens,
 # --------------------------------------------------------------------------
 # Hash layer: hash(addr, val, ts) = ts r^2 + val r + addr - rm (K1)
 # --------------------------------------------------------------------------
-_HASH = "hash_poly"
+def hash_poly_plain(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m, rm_m,
+                    write: bool = False):
+    """_hash_poly from K1's plain versions (any device)."""
+    h = fq.add_plain(fq.mul_plain(ts_m, r_hash_sqr_m),
+                     fq.mul_plain(val_m, r_hash_m))
+    h = fq.sub_plain(fq.add_plain(h, addr_m), rm_m)
+    return (h, fq.add_plain(h, r_hash_sqr_m)) if write else h
 
 
-def _hash_poly(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m, rm_m):
-    """Elementwise over tables that broadcast against each other; the
-    three challenges are single (16,) elements."""
-    h = fq.add(fq.mul(ts_m, r_hash_sqr_m, counter=_HASH),
-               fq.mul(val_m, r_hash_m, counter=_HASH), counter=_HASH)
-    h = fq.add(h, addr_m, counter=_HASH)
-    return fq.sub(h, rm_m, counter=_HASH)
+def _hash_poly(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m, rm_m,
+               write: bool = False):
+    """hash(addr, val, ts) = ts r^2 + val r + addr - rm elementwise over
+    (..., n, 16) tables that broadcast against each other; the three
+    challenges are single (16,) elements. With `write`, also hash(addr,
+    val, ts + 1) = h + r^2 (the write timestamps' hash), from the same
+    read. On the card one K1 launch a call (csrc/fq.cu k_hash, counted as
+    hash_poly), each operand read where it lies through its strides."""
+    if addr_m.device.type == "cpu":
+        return hash_poly_plain(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m,
+                               rm_m, write)
+    return _hash_launch(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m, rm_m,
+                        write)
+
+
+def _hash_launch(addr_m, val_m, ts_m, r_hash_sqr_m, r_hash_m, rm_m, write):
+    full = torch.broadcast_shapes(addr_m.shape, val_m.shape, ts_m.shape)
+    n, outer = full[-2], math.prod(full[:-2])
+    h = torch.empty(full, dtype=torch.int32, device=addr_m.device)
+    hw = torch.empty_like(h) if write else None
+    ops, strides = [], []
+    for t in (addr_m, val_m, ts_m):
+        if t.stride(-1) != 1 or any(x % 16 for x in t.stride()[:-1]):
+            t = t.contiguous()
+        v = t.expand(full).reshape(outer, n, 16)  # a view, or a copy
+        if v.device != h.device or v.dtype != torch.int32 or \
+                v.data_ptr() % 16:
+            raise ValueError("the hash takes int32 tables on one card")
+        ops.append(v)
+        strides += [v.stride(0) // 16, v.stride(1) // 16]
+    chs = [c.reshape(16).contiguous() for c in (r_hash_sqr_m, r_hash_m, rm_m)]
+    kernels.require_cuda(*chs)
+    st = (ctypes.c_longlong * 6)(*strides)
+    kernels.launch("hash_poly", "hash_poly_launch",
+                   *(t.data_ptr() for t in ops), ctypes.addressof(st),
+                   *(c.data_ptr() for c in chs), h.data_ptr(),
+                   hw.data_ptr() if write else None, outer, n,
+                   kernels.stream(h))
+    return (h, hw) if write else h
 
 
 class ProductLayer:
@@ -362,9 +408,10 @@ class Layers:
         addr = torch.stack([p.Zm for p in addr_timestamps.ops_addr])
         dref = torch.stack([p.Zm for p in poly_ops_val])
         rts = torch.stack([p.Zm for p in addr_timestamps.read_ts])
-        wts = fq.add(rts, lb.to_device(fq.ONE_MONT, dev))
-        read_h = _hash_poly(addr, dref, rts, rh2, rh, rm)
-        write_h = _hash_poly(addr, dref, wts, rh2, rh, rm)
+        # the write timestamps are rts + 1: their hash is the read hash +
+        # r^2, written from the same read
+        read_h, write_h = _hash_poly(addr, dref, rts, rh2, rh, rm,
+                                     write=True)
         return mem_h, read_h, write_h
 
 

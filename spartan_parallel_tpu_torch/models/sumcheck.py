@@ -436,7 +436,8 @@ class ZKSumcheckInstanceProof:
         bit-reversed within the class, instances sorted by decreasing Q_c
         so that the classes cover the p axis contiguously from p0. The
         shared eq tables fold once per round (eq_fold) before the class
-        kernels (K5) read them; the p rounds run K4 on the classes merged
+        kernel (K5, one launch a round for every class, each class's bind
+        fused in) reads them; the p rounds run K4 on the classes merged
         to one entry per instance. Which classes are active in a round is
         decided on the host from the round's n_half alone, so the rounds
         run in either form of `_rounds`: on the card every round, x, q and
@@ -459,22 +460,17 @@ class ZKSumcheckInstanceProof:
             return eq[MODE_P], eq[MODE_Q], eq[MODE_X]
 
         def class_round(n_half, mode, prev):
-            evs = []
-            for c in cls:
-                # a class is active while the global q fold still splits
-                # its stride-S rows; then its n_half is its own
-                active = mode == MODE_X or n_half >= c["S"]
-                nh = n_half // c["S"] if mode == MODE_Q and active else n_half
-                if prev is None:
-                    ev = sck.pc_evals(*tables(), *c["T"], nh, mode, c["p0"],
-                                      c["S"], active)
-                else:
-                    ev, c["T"] = sck.pc_step(
-                        *tables(), *c["T"], prev[0], c["nh"], nh, prev[1],
-                        mode, c["p0"], c["S"], c["active"], active)
-                c["nh"], c["active"] = nh, active
-                evs.append(ev)
-            return torch.stack(evs)
+            """Every class's round (K5, one launch): with prev = (r,
+            mode_prev) each class's previous-round bind first."""
+            if prev is not None:
+                prev = (*prev, [c["nh"] for c in cls],
+                        [c["active"] for c in cls])
+            evs, tabs, nhs, acts = sck.pc_round(
+                *tables(), [c["T"] for c in cls], [c["p0"] for c in cls],
+                [c["S"] for c in cls], n_half, mode, prev)
+            for c, T, nh, active in zip(cls, tabs, nhs, acts):
+                c["T"], c["nh"], c["active"] = T, nh, active
+            return evs
 
         def merge(rm, mode_prev):
             """The classes' last bind, then one entry per instance."""

@@ -7,12 +7,14 @@ takes its plain PyTorch version (the *_plain functions, int64 columns) on a
 CPU tensor. chip_smoke.py holds each kernel against its plain version on
 the card. Replaces ops/fq.py _mul_impl, _add_impl, _sub_impl, _dot_impl
 (with sum_reduce) and the binds of ops/sumcheck.py and
-models/dense_mlpoly.py; bound on the card by bytes (64 B per element per
-operand), see csrc/fq.cu.
+models/dense_mlpoly.py; `dot_many` evaluates a list of tables against one
+eq table in one launch (the JAX package's per-polynomial evaluate). Bound
+on the card by bytes (64 B per element per operand), see csrc/fq.cu.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -32,7 +34,9 @@ R2_LIMBS = lb.int_to_limbs(R2)
 ONE_LIMBS = lb.int_to_limbs(1)
 ONE_MONT = lb.int_to_limbs(R)  # 1 in Montgomery form
 
-_DOT_CHUNK = 4096  # csrc/fq.cu DOT_CHUNK
+_DOT_CHUNK = 4096  # csrc/fq.cu DOT_CHUNK: the most terms a block sums
+_DOT_TICKETS = 65536  # csrc/fq.cu DOT_TICKETS
+DOT_MANY_MAX = 256  # csrc/fq.cu DOT_MANY_MAX
 
 
 # --------------------------------------------------------------------------
@@ -118,6 +122,11 @@ def dot_plain(a: torch.Tensor, b: torch.Tensor, axis: int = 0):
     return sum_plain(mul_plain(a.expand(shape), b.expand(shape)), axis)
 
 
+def dot_many_plain(tables, b: torch.Tensor) -> torch.Tensor:
+    """dot_plain of each (K, 16) table with b, stacked to (n, 16)."""
+    return torch.stack([dot_plain(t, b, 0) for t in tables])
+
+
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
@@ -192,6 +201,25 @@ def bind(t: torch.Tensor, r: torch.Tensor, axis: int, n_half: int,
     return out
 
 
+_SMS = {}
+
+
+def _dot_chunk(outputs: int, K: int, device) -> int:
+    """Terms a block of K1's dot sums: halved from _DOT_CHUNK down to 256
+    (a term a thread) until the grid has six blocks an SM, two waves of
+    the blocks resident at once."""
+    nsm = _SMS.get(device)
+    if nsm is None:
+        nsm = _SMS[device] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    chunk = _DOT_CHUNK
+    while chunk > 256 and outputs * -(-K // chunk) < 6 * nsm:
+        chunk //= 2
+    if -(-K // chunk) > 65535:  # chunks of the reduced axis are the grid.y
+        raise ValueError(f"dot reduces at most 65535 * {chunk} terms")
+    return chunk
+
+
 def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0,
         counter: str | None = None) -> torch.Tensor:
     """sum_k a*b along `axis`; b broadcasts against a. `counter` as in
@@ -216,17 +244,60 @@ def dot(a: torch.Tensor, b: torch.Tensor, axis: int = 0,
                       device=a.device)
     if K == 0:
         return out.zero_()
-    nchunks = -(-K // _DOT_CHUNK)
-    if nchunks > 65535:  # chunks of the reduced axis are the grid.y
-        raise ValueError(f"dot reduces at most 65535 * {_DOT_CHUNK} terms")
+    chunk = _dot_chunk(outer * inner, K, a.device)
+    nchunks = -(-K // chunk)
+    if nchunks > 1 and outer * inner > _DOT_TICKETS:
+        raise ValueError(f"dot sums the chunks of at most {_DOT_TICKETS} "
+                         f"outputs in one launch")
     part = torch.empty((outer * inner * nchunks, 8), dtype=torch.int32,
                        device=a.device)
     sbo, sbk, sbi = (s // 16 for s in b3.stride()[:3])
     kernels.launch("fq_dot", "fq_dot_launch", a.data_ptr(), b3.data_ptr(),
                    part.data_ptr(), out.data_ptr(), outer, K, inner, sbo, sbk,
-                   sbi, kernels.stream(a))
+                   sbi, chunk, kernels.stream(a))
     if counter is not None:
         kernels.count(counter)
+    return out
+
+
+def dot_many(tables, b: torch.Tensor, counter: str | None = None):
+    """(n, 16): each of the equal-length (K, 16) tables dotted with the
+    (K, 16) table b. On the card one launch for up to DOT_MANY_MAX tables
+    (the tables may be views into one allocation; each is read where it
+    lies), counted as fq_dot_many and under `counter`."""
+    for t in tables:
+        _check_limbs(t)
+    if b.device.type == "cpu":
+        return dot_many_plain(tables, b)
+    return _dot_many_launch(tables, b, counter)
+
+
+def _dot_many_launch(tables, b: torch.Tensor, counter: str | None):
+    K = b.shape[0]
+    b = b.contiguous()
+    tables = [t if t.is_contiguous() else t.contiguous() for t in tables]
+    kernels.require_cuda(b, *tables)
+    if any(tuple(t.shape) != (K, 16) for t in tables) or b.dim() != 2:
+        raise ValueError("dot_many takes (K, 16) tables and a (K, 16) b")
+    if any(t.data_ptr() % 16 for t in tables):
+        raise ValueError("dot_many reads 16-byte aligned tables")
+    n = len(tables)
+    out = torch.empty((n, 16), dtype=torch.int32, device=b.device)
+    if K == 0 or n == 0:
+        return out.zero_()
+    chunk = _dot_chunk(min(n, DOT_MANY_MAX), K, b.device)
+    nchunks = -(-K // chunk)
+    part = torch.empty((min(n, DOT_MANY_MAX) * nchunks, 8),
+                       dtype=torch.int32, device=b.device)
+    for j in range(0, n, DOT_MANY_MAX):
+        group = tables[j:j + DOT_MANY_MAX]
+        ptrs = (ctypes.c_void_p * len(group))(*(t.data_ptr() for t in group))
+        kernels.launch("fq_dot_many", "fq_dot_many_launch",
+                       ctypes.addressof(ptrs), len(group), b.data_ptr(),
+                       part.data_ptr(), out[j].data_ptr(), K, chunk,
+                       kernels.stream(b))
+        if counter is not None:
+            kernels.count(counter)
     return out
 
 

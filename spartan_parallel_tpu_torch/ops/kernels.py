@@ -10,10 +10,11 @@ cudaGetLastError() and `launch` raises when it is not 0.
 
 `launches` counts, per wrapper, the calls that launched a kernel on the
 card; a function built on K1's wrappers (eq_fold, pc_bind, the ABC
-combination, SPARK's hash layer and dot-product circuits, the rlc dot of
-ShiftProofs) also counts its launches under its own name. The eq table is
-K1's own kernel, counted as eq_evals. CPU tensors take the plain PyTorch
-versions and are not counted.
+combination, SPARK's dot-product circuits, the evaluations of
+`_evaluate_many`, the rlc dot of ShiftProofs) also counts its launches
+under its own name. The eq table and SPARK's hash layer are K1 kernels of
+their own, counted as eq_evals and hash_poly. CPU tensors take the plain
+PyTorch versions and are not counted.
 
 K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
 Keccak permutation, ristretto compression, comb commitments and the round
@@ -51,8 +52,9 @@ _ENTRIES = {
     "fq_add_launch": ("fq", [_P, _P, _P, _I64, _I32, _P]),
     "fq_sub_launch": ("fq", [_P, _P, _P, _I64, _I32, _P]),
     "fq_bind_launch": ("fq", [_P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P]),
-    "fq_dot_launch": ("fq", [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                             _I64, _P]),
+    "fq_dot_launch": ("fq", [_P, _P, _P, _P] + [_I64] * 7 + [_P]),
+    "fq_dot_many_launch": ("fq", [_P, _I32, _P, _P, _P, _I64, _I64, _P]),
+    "hash_poly_launch": ("fq", [_P] * 7 + [_P, _P, _I64, _I64, _P]),
     "eq_evals_launch": ("fq", [_P, _I32, _P, _P]),
     "msm_launch": ("msm", [_P] * 7 + [_I64, _I64, _P]),
     "msm_window_occupancy": ("msm", [_P]),
@@ -66,9 +68,8 @@ _ENTRIES = {
                                                  _I64, _I32, _P, _P, _P, _P]),
     "p2_round_launch": ("sumcheck", [_P] * 6 + [_I64, _I64, _I64, _I64, _I32,
                                                 _I64, _I32, _P, _P, _P, _P]),
-    "pc_round_launch": ("sumcheck", [_P] * 9 + [_I64, _I64, _I64, _I32, _I32,
-                                                _I64, _I64, _I64, _I32, _P,
-                                                _P, _P, _P]),
+    "pc_round_launch": ("sumcheck", [_P] * 4 + [_P, _I32, _I32, _P, _P,
+                                                _P]),
     "pt_round_launch": ("product", [_P] * 3 + [_I64] * 2 + [_P] * 3
                         + [_I64] * 7 + [_I32] + [_P] * 6),
     "pt_tree_pass_launch": ("product", [_P, _P, _I64, _I64, _I32, _P]),

@@ -12,18 +12,24 @@ The JAX package keeps every buffer at its size for the whole sumcheck
 `p2_step`, plain and on the card alike) return tables of the new live
 length along the axis they bound, so the next round reads and writes only
 live entries; `p1_bind` / `p2_bind` keep the buffer's length unless given
-`out_len`. K5's class tables (`pc_*`) keep the fixed buffers.
+`out_len`. So do K5's class steps (`pc_step`, `pc_round`); `pc_bind`
+keeps the buffer's length.
 
-`p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch K4 and
-`pc_evals` / `pc_step` launch K5 (csrc/sumcheck.cu) on CUDA tensors: a
-step whose previous round bound the same axis runs as one fused kernel; at
-an axis change it binds through K1 and then evaluates. Binds, `eq_fold`
-and `pc_bind` go through K1 (ops/fq.py). CPU tensors take the *_plain
-versions. Bound on the card by bytes (every live table entry read once
-per round), see csrc/sumcheck.cu.
+`p1_evals` / `p1_step` and `p2_evals` / `p2_step` launch K4
+(csrc/sumcheck.cu) on CUDA tensors: a step whose previous round bound the
+same axis runs as one fused kernel; at an axis change it binds through K1
+and then evaluates. `pc_round` launches K5 once for a round of every
+q-size class, each class's bind (same axis, axis change, change of
+activity or the inactive scale) fused into it; `pc_evals` / `pc_step` are
+K5 with one class. Binds, `eq_fold` and `pc_bind` go through K1
+(ops/fq.py). CPU tensors take the *_plain versions. Bound on the card by
+bytes (every live table entry read once per round), see
+csrc/sumcheck.cu.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -214,13 +220,6 @@ def p2_step_plain(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
 # --------------------------------------------------------------------------
 # Kernel wrappers
 # --------------------------------------------------------------------------
-def _scratch(n_elems: int, device):
-    nb = -(-n_elems // 256)
-    part = torch.empty((3 * nb, 8), dtype=torch.int32, device=device)
-    out = torch.empty((3, 16), dtype=torch.int32, device=device)
-    return part, out
-
-
 _K4_THREADS = 128  # csrc/sumcheck.cu K4_THREADS
 _K4_MAX_BLOCKS = 2048  # csrc/sumcheck.cu K4_MAX_BLOCKS
 
@@ -376,7 +375,7 @@ def p2_step(ep, ABC, Z, r_prev, n_half_prev, n_half, mode_prev: int,
 # so its eq_q table is tq[::S] while it is active (the first log2(Q_c) q
 # rounds); afterwards it is inactive and its dense fold degenerates to
 # T' = (1 - r) T. The global eq tables are shared by every class, folded
-# once per round by `eq_fold`, and read-only in the class kernels.
+# once per round by `eq_fold`, and read-only in the class kernel.
 # --------------------------------------------------------------------------
 _PC_AXIS = {MODE_X: 2, MODE_Q: 1}
 
@@ -413,13 +412,29 @@ def pc_evals_plain(tp, tq, tx, B, C, D, n_half: int, mode: int, p0: int,
     return p1_evals_plain(tp_c, tq_c, tx[:B.shape[2]], B, C, D, n_half, mode)
 
 
-def pc_bind_plain(B, C, D, r, n_half: int, mode: int, active: bool):
-    """Class bind: fold (active) or (1 - r)-scale each of B, C, D."""
+def pc_class_state(n_half: int, mode: int, S: int):
+    """(n_half, active) of the class of q stride S in a round of the
+    global n_half: a class is active while the global q fold still splits
+    its stride-S rows, and its n_half is then its own."""
+    active = mode == MODE_X or n_half >= S
+    return (n_half // S if mode == MODE_Q and active else n_half), active
+
+
+def _pc_states(n_half: int, mode: int, Ss):
+    """The classes' n_halves and activities in a round."""
+    state = [pc_class_state(int(n_half), mode, int(S)) for S in Ss]
+    return [n for n, _ in state], [a for _, a in state]
+
+
+def pc_bind_plain(B, C, D, r, n_half: int, mode: int, active: bool,
+                  out_len: int | None = None):
+    """Class bind: fold (active; the axis keeps its length, or has out_len
+    entries) or (1 - r)-scale each of B, C, D."""
     if mode == MODE_Q and not active:
         one = lb.to_device(fq.ONE_MONT, B.device)
         omr = fq.sub_plain(one, r.reshape(16))
         return tuple(fq.mul_plain(t, omr) for t in (B, C, D))
-    return tuple(fq.bind_plain(t, r, _PC_AXIS[mode], int(n_half))
+    return tuple(fq.bind_plain(t, r, _PC_AXIS[mode], int(n_half), out_len)
                  for t in (B, C, D))
 
 
@@ -434,18 +449,43 @@ def _pc_compact(B, C, D, mode: int, active: bool):
 def pc_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
                   mode_prev: int, mode: int, p0: int, S: int,
                   active_prev: bool, active: bool):
+    """The class's previous-round bind, to the new live length
+    n_half_prev along its axis, then this round's evaluations; returns
+    (evals, (B, C, D))."""
     tabs = pc_bind_plain(B, C, D, r_prev, n_half_prev, mode_prev,
-                         active_prev)
+                         active_prev, int(n_half_prev))
     tabs = _pc_compact(*tabs, mode, active)
     return pc_evals_plain(tp, tq, tx, *tabs, n_half, mode, p0, S,
                           active), tabs
 
 
+def pc_round_plain(tp, tq, tx, tabs, p0s, Ss, n_half: int, mode: int,
+                   prev=None):
+    """pc_round's plain version: pc_evals_plain (first round) or
+    pc_step_plain of each class, the evaluations stacked."""
+    nhs, actives = _pc_states(n_half, mode, Ss)
+    evs, new = [], []
+    for i, (T, p0, S) in enumerate(zip(tabs, p0s, Ss)):
+        if prev is None:
+            evs.append(pc_evals_plain(tp, tq, tx, *T, nhs[i], mode, p0, S,
+                                      actives[i]))
+        else:
+            r, mode_prev, nhs_prev, actives_prev = prev
+            ev, T = pc_step_plain(tp, tq, tx, *T, r, nhs_prev[i], nhs[i],
+                                  mode_prev, mode, p0, S, actives_prev[i],
+                                  actives[i])
+            evs.append(ev)
+        new.append(T)
+    return torch.stack(evs), new, nhs, actives
+
+
 def pc_bind(B, C, D, r, n_half: int, mode: int, active: bool):
-    """The class bind on the card: an active fold is K1's fq_bind (counted
-    as pc_bind); the inactive (1 - r) scale is K1's fq_bind of the pair
-    (T, 0), T + r (0 - T) (counted as pc_bind_inactive; no constant goes
-    up to the card inside a sumcheck)."""
+    """The class bind on the card, the buffers keeping their length: an
+    active fold is K1's fq_bind (counted as pc_bind); the inactive (1 - r)
+    scale is K1's fq_bind of the pair (T, 0), T + r (0 - T) (counted as
+    pc_bind_inactive; no constant goes up to the card inside a sumcheck).
+    The prover's rounds bind inside K5 (pc_round); this serves the end of
+    the classed rounds and the multi-device settle."""
     if B.device.type == "cpu":
         return pc_bind_plain(B, C, D, r, n_half, mode, active)
     if mode == MODE_Q and not active:
@@ -456,78 +496,141 @@ def pc_bind(B, C, D, r, n_half: int, mode: int, active: bool):
                          counter="pc_bind") for t in (B, C, D))
 
 
-def _pc_counter(mode: int, active: bool, S: int, fused: bool) -> str:
-    """Launch count of one form of K5; an active class read at q stride
-    S > 1 of the eq_q table counts apart (xs, qs)."""
-    if active:
-        form = ("x" if mode == MODE_X else "q") + ("s" if S > 1 else "")
-    else:
-        form = "qi"
-    return "sc_pc_round_" + form + ("_fused" if fused else "")
+_PC_MAX_CLASSES = 16  # csrc/sumcheck.cu PC_MAX_CLASSES
+_PC_BIND = {MODE_Q: 1, MODE_X: 2}  # csrc/sumcheck.cu PcClass.bax
 
 
-def _pc_launch(tp, tq, tx, B, C, D, n_half, mode, p0, S, active, r=None,
-               n_half_prev=None):
-    bind = r is not None
-    if mode not in _PC_AXIS or (mode == MODE_X and not active):
-        raise ValueError("a class round binds x (active) or q")
-    if not active:  # one live entry per instance
-        B, C, D = (t[:, :1, :1] for t in (B, C, D))
-    Pc, Qn, Xn = B.shape[:3]
-    if C.shape != B.shape or D.shape != B.shape:
-        raise ValueError("class table shapes disagree")
-    if p0 + Pc > tp.shape[0] or Xn > tx.shape[0]:
-        raise ValueError("class tables outside the eq tables")
-    if active:
-        n_live = 2 * n_half * (S if mode == MODE_Q else 1)
-        if n_live > (tq.shape[0] if mode == MODE_Q else tx.shape[0]) or \
+def _pc_launch(tp, tq, tx, tabs, p0s, Ss, nhs, actives, mode, prev=None):
+    """K5 over the classes: one launch of up to _PC_MAX_CLASSES classes.
+    prev: None, or (r, mode_prev, n_halves_prev, actives_prev) of the
+    previous round, whose bind each class takes first. Returns (evals (n,
+    3, 16), the tables of the round: with prev the new tables of the live
+    length, else the tables given)."""
+    if mode not in _PC_AXIS:
+        raise ValueError("a class round binds x or q")
+    dev = tp.device
+    eqs = [t.contiguous() for t in (tp, tq, tx)]
+    r = prev[0].reshape(16).contiguous() if prev is not None else eqs[0]
+    kernels.require_cuda(*eqs, r)
+    n = len(tabs)
+    # keep: the tables read (and any contiguous copy) alive to the launch
+    rows, keep, shapes = [], [], []
+    for i in range(n):
+        B, C, D = tabs[i]
+        nh, active = int(nhs[i]), bool(actives[i])
+        if mode == MODE_X and not active:
+            raise ValueError("an x round has no inactive class")
+        if C.shape != B.shape or D.shape != B.shape or \
+                C.stride() != B.stride() or D.stride() != B.stride() or \
+                B.stride(-1) != 1 or any(x % 16 for x in B.stride()[:3]):
+            B, C, D = (t.contiguous() for t in (B, C, D))
+        for t in (B, C, D):
+            if t.device != dev or t.dtype != torch.int32 or \
+                    t.data_ptr() % 16:
+                raise ValueError("K5 reads int32 tables on the eq tables' "
+                                 "card, 16-byte aligned")
+        dims = list(B.shape[:3])
+        bax, h = 0, 0
+        if prev is not None:
+            mode_prev, h = prev[1], int(prev[2][i])
+            if mode_prev == MODE_Q and not prev[3][i]:
+                bax, h = 3, 0
+            else:
+                bax = _PC_BIND[mode_prev]
+                if h < 1 or 2 * h > dims[_PC_AXIS[mode_prev]]:
+                    raise ValueError(f"bind offset {h} outside an axis of "
+                                     f"{dims[_PC_AXIS[mode_prev]]}")
+                dims[_PC_AXIS[mode_prev]] = h
+        # a step compacts the axes bound before (_pc_compact); an inactive
+        # class has one live entry an instance
+        if (prev is not None and mode != MODE_X) or not active:
+            dims[2] = 1
+        if not active:
+            dims[1] = 1
+        Pc, Qn, Xn = dims
+        p0, S = int(p0s[i]), int(Ss[i])
+        ax_len = Xn if mode == MODE_X else Qn
+        if p0 + Pc > tp.shape[0] or Xn > tx.shape[0] or \
                 S * Qn > tq.shape[0]:
             raise ValueError("class tables outside the eq tables")
-        if bind and 2 * n_half != n_half_prev:
-            raise ValueError("fused step binds the same axis: n_half_prev "
-                             "must be 2 * n_half")
-    elif n_half >= tq.shape[0]:
-        raise ValueError("n_half outside the eq_q table")
-    tabs = [t.contiguous() for t in (tp, tq, tx, B, C, D)]
-    r = r.reshape(16).contiguous() if bind else tabs[0]
-    kernels.require_cuda(*tabs, r)
-    if bind:
-        nB, nC, nD = (torch.empty_like(t) for t in tabs[3:])
+        if active:
+            eq_len = tx.shape[0] if mode == MODE_X else tq.shape[0] // S
+            if nh < 1 or 2 * nh > min(ax_len, eq_len) or \
+                    (bax and 2 * nh != ax_len):
+                raise ValueError(f"n_half {nh} outside an axis of {ax_len}")
+        elif nh >= tq.shape[0]:
+            raise ValueError("n_half outside the eq_q table")
+        shapes.append((Pc, Qn, Xn))
+        keep.append((B, C, D))
+        rows.append([B.data_ptr(), C.data_ptr(), D.data_ptr(), 0, 0, 0,
+                     *(x // 16 for x in B.stride()[:3]), Pc, Qn, Xn, p0, S,
+                     nh, h, bax, int(active)])
+    if prev is not None:  # every class's new tables in one allocation
+        sizes = [3 * math.prod(d) for d in shapes]
+        flat = torch.empty((sum(sizes), 16), dtype=torch.int32, device=dev)
+        new, at = [], 0
+        for i, d in enumerate(shapes):
+            m = math.prod(d)
+            T = tuple(flat[at + k * m:at + (k + 1) * m].view(*d, 16)
+                      for k in range(3))
+            rows[i][3:6] = [t.data_ptr() for t in T]
+            new.append(T)
+            at += sizes[i]
     else:
-        nB = nC = nD = tabs[0]
-    part, out = _scratch(Pc * Qn * Xn, B.device)
-    kernels.launch(_pc_counter(mode, active, S, bind), "pc_round_launch",
-                   *(t.data_ptr() for t in tabs),
-                   nB.data_ptr(), nC.data_ptr(), nD.data_ptr(), Pc, Qn, Xn,
-                   _PC_AXIS[mode], int(active), int(n_half), int(p0), int(S),
-                   int(bind), r.data_ptr(), part.data_ptr(), out.data_ptr(),
-                   kernels.stream(B))
-    return out, (nB, nC, nD) if bind else None
+        new = [tuple(t) for t in tabs]
+    out = torch.empty((n, 3, 16), dtype=torch.int32, device=dev)
+    part = torch.empty(24 * (_K4_MAX_BLOCKS + _PC_MAX_CLASSES),
+                       dtype=torch.int32, device=dev)
+    desc = np.asarray(rows, dtype=np.int64)
+    for j in range(0, n, _PC_MAX_CLASSES):
+        chunk = desc[j:j + _PC_MAX_CLASSES]
+        kernels.launch("sc_pc_round", "pc_round_launch",
+                       *(t.data_ptr() for t in eqs), r.data_ptr(),
+                       chunk.ctypes.data, len(chunk), _PC_AXIS[mode],
+                       part.data_ptr(), out[j].data_ptr(),
+                       kernels.stream(tp))
+    return out, new
+
+
+def pc_round(tp, tq, tx, tabs, p0s, Ss, n_half: int, mode: int,
+             prev=None):
+    """One round of the classed phase 1 for every class: each class's
+    previous-round bind (prev: None, or (r, mode_prev, its n_halves,
+    its activities)) and its evaluations, with tp/tq/tx the current
+    global eq tables (already folded for this round by eq_fold). On the
+    card one K5 launch for all classes (csrc/sumcheck.cu k_pc_round,
+    counted as sc_pc_round). Returns (evals (n, 3, 16), the classes'
+    tables, n_halves, activities)."""
+    if tp.device.type == "cpu":
+        return pc_round_plain(tp, tq, tx, tabs, p0s, Ss, n_half, mode, prev)
+    nhs, actives = _pc_states(n_half, mode, Ss)
+    ev, new = _pc_launch(tp, tq, tx, tabs, p0s, Ss, nhs, actives, mode,
+                         prev)
+    return ev, new, nhs, actives
 
 
 def pc_evals(tp, tq, tx, B, C, D, n_half: int, mode: int, p0: int, S: int,
              active: bool):
+    """One class's (e0, e2, e3): K5 with one class."""
     if B.device.type == "cpu":
         return pc_evals_plain(tp, tq, tx, B, C, D, n_half, mode, p0, S,
                               active)
-    return _pc_launch(tp, tq, tx, B, C, D, int(n_half), mode, p0, S,
-                      active)[0]
+    return _pc_launch(tp, tq, tx, [(B, C, D)], [p0], [S], [n_half],
+                      [active], mode)[0][0]
 
 
 def pc_step(tp, tq, tx, B, C, D, r_prev, n_half_prev, n_half,
             mode_prev: int, mode: int, p0: int, S: int, active_prev: bool,
             active: bool):
     """The class's previous-round bind fused with this round's
-    evaluations; tp/tq/tx are the current global eq tables (already
-    folded for this round by eq_fold). Returns (evals, (B, C, D))."""
+    evaluations (K5 with one class); tp/tq/tx are the current global eq
+    tables (already folded for this round by eq_fold). Returns (evals,
+    (B, C, D)), the tables of the live length."""
     if B.device.type == "cpu":
         return pc_step_plain(tp, tq, tx, B, C, D, r_prev, n_half_prev,
                              n_half, mode_prev, mode, p0, S, active_prev,
                              active)
-    if mode_prev == mode and active_prev == active:
-        return _pc_launch(tp, tq, tx, *_pc_compact(B, C, D, mode, active),
-                          int(n_half), mode, p0, S, active, r_prev,
-                          int(n_half_prev))
-    tabs = pc_bind(B, C, D, r_prev, n_half_prev, mode_prev, active_prev)
-    tabs = _pc_compact(*tabs, mode, active)
-    return pc_evals(tp, tq, tx, *tabs, n_half, mode, p0, S, active), tabs
+    ev, new = _pc_launch(tp, tq, tx, [(B, C, D)], [p0], [S], [n_half],
+                         [active], mode,
+                         (r_prev, mode_prev, [n_half_prev], [active_prev]))
+    return ev[0], new[0]

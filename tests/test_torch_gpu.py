@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from spartan_parallel_tpu_torch.core.consts import L
-from spartan_parallel_tpu_torch.ops import curve, fq, msm, spmv
+from spartan_parallel_tpu_torch.ops import curve, fq, kernels, msm, spmv
 from spartan_parallel_tpu_torch.ops import sumcheck as sck
 
 pytestmark = pytest.mark.gpu
@@ -46,6 +46,49 @@ def test_fq_kernels(dev):
     assert torch.equal(fq.dot(m, b[:10, None], 0),
                        fq.dot_plain(m, b[:10, None], 0))
     assert torch.equal(fq.dot(a, b), fq.dot_plain(a, b))
+    # a dot over more than one chunk of the reduced axis, in one launch
+    big = rand_field((3, 9000), dev, 4)
+    before = kernels.launches.get("fq_dot", 0)
+    assert torch.equal(fq.dot(big, big.flip(1), 1),
+                       fq.dot_plain(big, big.flip(1), 1))
+    assert kernels.launches["fq_dot"] - before == 1
+    # more elements than the resident blocks cover at once, so that each
+    # warp strides over several chunks, with a partial last chunk
+    n = (1 << 20) + 37
+    x, y = rand_field((n,), dev, 8), rand_field((n,), dev, 9)
+    assert torch.equal(fq.mul(x, y), fq.mul_plain(x, y))
+    assert torch.equal(fq.bind(x[:-1], r, 0, n // 2),
+                       fq.bind_plain(x[:-1], r, 0, n // 2))
+
+
+def test_fq_dot_many_and_hash_kernels(dev):
+    """fq.dot_many (tables apart, views into one allocation, and more
+    tables than one launch takes) and SPARK's one-pass hash (operands that
+    broadcast, the write hash beside it) against their plain versions."""
+    from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
+
+    chis = rand_field((5000,), dev, 5)
+    m = rand_field((6, 5000), dev, 6)
+    apart = [rand_field((5000,), dev, 7 + i) for i in range(3)]
+    for tables in (apart, list(m), list(m[::2])):
+        before = kernels.launches.get("fq_dot_many", 0)
+        assert torch.equal(fq.dot_many(tables, chis),
+                           fq.dot_many_plain(tables, chis))
+        assert kernels.launches["fq_dot_many"] - before == 1
+    many = rand_field((fq.DOT_MANY_MAX + 3, 64), dev, 8)
+    assert torch.equal(fq.dot_many(list(many), chis[:64]),
+                       fq.dot_many_plain(list(many), chis[:64]))
+    addr, val = rand_field((300,), dev, 9), rand_field((300,), dev, 10)
+    ts = rand_field((2, 300), dev, 11)
+    ch = rand_field((3,), dev, 12)
+    for operands in ((addr, val, ts), (addr, val, ts[0]),
+                     (ts, val, addr), (addr[None], ts, val)):
+        before = kernels.launches.get("hash_poly", 0)
+        got = sp._hash_poly(*operands, *ch, write=True)
+        want = sp.hash_poly_plain(*operands, *ch, write=True)
+        assert kernels.launches["hash_poly"] - before == 1
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert torch.equal(sp._hash_poly(*operands, *ch), want[0])
 
 
 def test_msm_and_fold_kernels(dev):
@@ -304,6 +347,52 @@ def test_classed_sumcheck_kernel(dev):
         want = sck.pc_bind_plain(*Tq, r, 2, Q, active)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(sck.eq_fold(tq, r, 4), fq.bind_plain(tq, r, 0, 4))
+
+
+def test_classed_round_all_classes_kernel(dev):
+    """K5's round of every class in one launch (pc_round) against its
+    plain version: the classes of num_proofs [8, 2, 1] (q stride 1, 4, 8
+    of an 8-entry eq_q table) in the first x round, a fused x round, the
+    x -> q change (two active classes, one inactive), a q round mixing a
+    same-axis bind, a change of activity and the (1 - r) scale, and the
+    classes of [512, 128, 32, 32] at a small x."""
+    X, Q = sck.MODE_X, sck.MODE_Q
+    r = rand_field((), dev, 100)
+
+    def check(eqs, tabs, p0s, Ss, n_half, mode, prev):
+        before = kernels.launches.get("sc_pc_round", 0)
+        got = sck.pc_round(*eqs, tabs, p0s, Ss, n_half, mode, prev)
+        assert kernels.launches["sc_pc_round"] - before == 1
+        want = sck.pc_round_plain(*eqs, tabs, p0s, Ss, n_half, mode, prev)
+        assert torch.equal(got[0], want[0]) and got[2:] == want[2:]
+        for g, w in zip(got[1], want[1]):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))
+        return got
+
+    eqs = tuple(rand_field((n,), dev, 101 + n) for n in (4, 8, 16))
+    p0s, Ss = [0, 1, 2], [1, 4, 8]
+    tabs = [tuple(rand_field((1, q, 16), dev, 110 + 3 * q + i)
+                  for i in range(3)) for q in (8, 2, 1)]
+    check(eqs, tabs, p0s, Ss, 8, X, None)
+    ev, tabs, nhs, acts = check(eqs, tabs, p0s, Ss, 4, X,
+                                (r, X, [8] * 3, [True] * 3))
+    tabs = [tuple(t[:, :, :2].contiguous() for t in T) for T in tabs]
+    ev, tabs, nhs, acts = check(eqs, tabs, p0s, Ss, 4, Q,
+                                (r, X, [1] * 3, [True] * 3))
+    assert acts == [True, True, False]
+    tabs = [tuple(rand_field(s, dev, 120 + i) for i in range(3))
+            for s in ((1, 8, 1), (1, 2, 1), (1, 1, 1))]
+    ev, tabs, nhs, acts = check(eqs, tabs, p0s, Ss, 2, Q,
+                                (r, Q, [4, 1, 4], [True, True, False]))
+    assert acts == [True, False, False]
+    # config 4's classes at X = 64: (1, 512), (1, 128), (2, 32)
+    eqs = tuple(rand_field((n,), dev, 130 + i)
+                for i, n in enumerate((4, 512, 64)))
+    tabs = [tuple(rand_field((pc, q, 64), dev, 140 + 3 * q + i)
+                  for i in range(3)) for pc, q in ((1, 512), (1, 128),
+                                                   (2, 32))]
+    check(eqs, tabs, [0, 1, 2], [1, 4, 16], 16, X,
+          (r, X, [32] * 3, [True] * 3))
 
 
 def _same_tables(got, want) -> bool:

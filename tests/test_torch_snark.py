@@ -2,7 +2,8 @@
 
 The counter program (examples.build_counter_program: two blocks executed
 0 -> 1 -> 0 -> 1, no memory) under one fixed tape, encoded and proved by
-the JAX package once per run (shared across pytest-xdist workers) and by
+the JAX package once per run, in a fresh process (shared across
+pytest-xdist workers), and by
 the port on the CPU: the port's circuit commitments, proof and transcript
 state after prove must equal the JAX package's; the port's verifier must
 accept the JAX proof and reject tampered ones. Also the slice's modules
@@ -36,7 +37,9 @@ from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
 from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
 from spartan_parallel_tpu_torch.utils.transcript import Transcript
 
-from .torch_shared import device_rounds, shared_result
+from .torch_shared import (
+    case_rng, device_rounds, in_fresh_process, shared_result,
+)
 
 TAPE = b"\x07" * 32
 LABEL = b"snark_example"
@@ -86,21 +89,26 @@ def comm_bytes(ser, ctx):
                                                ctx["perm_root_comm"]]]
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+def jax_counter_run():
     """The JAX package's counter SNARK under TAPE: (label map, commitment
     bytes, proof bytes, transcript probe after prove)."""
-    def prove():
-        args, pa = jex.build_counter_program()
-        ctx = jex.setup_counter_instances(args)
-        tp = JTranscript(LABEL)
-        proof = JSNARK.prove(*prove_args(pa, ctx), tp,
-                             random_tape=JTape(b"proof", seed=TAPE))
-        return (ctx["block_comm_map"], comm_bytes(jser, ctx),
-                jser.serialize(proof, "SNARK"),
-                int(tp.challenge_scalar(b"probe")))
+    args, pa = jex.build_counter_program()
+    ctx = jex.setup_counter_instances(args)
+    tp = JTranscript(LABEL)
+    proof = JSNARK.prove(*prove_args(pa, ctx), tp,
+                         random_tape=JTape(b"proof", seed=TAPE))
+    return (ctx["block_comm_map"], comm_bytes(jser, ctx),
+            jser.serialize(proof, "SNARK"),
+            int(tp.challenge_scalar(b"probe")))
 
-    return shared_result(tmp_path_factory, "jax_snark_counter", prove)
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """jax_counter_run once a run, in a fresh process, so that the XLA
+    executables of the JAX prove do not stay mapped in a worker."""
+    return shared_result(tmp_path_factory, "jax_snark_counter",
+                         lambda: in_fresh_process(jax_counter_run,
+                                                  timeout=1200))
 
 
 def prove_port():
@@ -190,24 +198,54 @@ def test_port_rejects_tampered_proof(port_run, tamper):
 # --------------------------------------------------------------------------
 # The univariate evaluation: K7's plain version and the rlc dot
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("n", [1, 2, 7, 512, 1000])
-def test_powers_and_rlc_eval_match_jax(n):
-    c, = rand_ints(1)
-    z = rand_ints(n)
-    jc = jdm.scalars_to_mont([c])[0]
+POWERS = [1, 2, 7, 512, 1000]
+
+
+def powers_inputs(n):
+    """The challenge and table of the case n, drawn from a seed of its own
+    (the same in every worker and in the JAX process)."""
+    g = case_rng("powers", n)
+    vals = [int.from_bytes(g.bytes(40), "little") % L for _ in range(n + 1)]
+    return vals[0], vals[1:]
+
+
+def jax_powers_refs():
+    """The JAX package's powers, rlc dot and uni_evaluate of every case,
+    in one process."""
+    out = {}
+    for n in POWERS:
+        c, z = powers_inputs(n)
+        jc = jdm.scalars_to_mont([c])[0]
+        pw = jdm._powers_dev(jc, n=n)
+        out[n] = (np.asarray(pw),
+                  np.asarray(jdm._rlc_eval_dev(jdm.scalars_to_mont(z), pw)),
+                  int(jdm.uni_evaluate(jdm.DensePolynomial.from_scalars(z),
+                                       JScalar(c))))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_powers(tmp_path_factory):
+    return shared_result(tmp_path_factory, "jax_powers_refs",
+                         lambda: in_fresh_process(jax_powers_refs,
+                                                  timeout=900))
+
+
+@pytest.mark.parametrize("n", POWERS)
+def test_powers_and_rlc_eval_match_jax(jax_powers, n):
+    """K7's plain version, the rlc dot and uni_evaluate against the JAX
+    package's (computed once a run in a fresh process)."""
+    c, z = powers_inputs(n)
+    want_pw, want_rlc, want_uni = jax_powers[n]
     tc = tdm.scalars_to_mont([c], "cpu")[0]
-    want = jdm._powers_dev(jc, n=n)
     got = uni.fq_powers(tc, n)
-    assert same(want, got)
+    assert same(want_pw, got)
     assert fq.decode(got) == [pow(c, i, L) for i in range(n)]
     zm = tdm.scalars_to_mont(z, "cpu")
-    want = jdm._rlc_eval_dev(jdm.scalars_to_mont(z), want)
-    assert same(want, fq.dot(zm, got, axis=0, counter="rlc_eval"))
+    assert same(want_rlc, fq.dot(zm, got, axis=0, counter="rlc_eval"))
     # uni_evaluate on the table padded to a power of two, as a poly is
-    jpoly = jdm.DensePolynomial.from_scalars(z)
     tpoly = tdm.DensePolynomial.from_scalars(z, "cpu")
-    assert int(tdm.uni_evaluate(tpoly, Scalar(c))) == \
-        int(jdm.uni_evaluate(jpoly, JScalar(c))) == \
+    assert int(tdm.uni_evaluate(tpoly, Scalar(c))) == want_uni == \
         sum(v * pow(c, i, L) for i, v in enumerate(z)) % L
 
 

@@ -285,9 +285,25 @@ def test_timestamps_and_hash_layer_match_jax():
     for i in range(2):
         assert same(jl.read_vec[i].left_vec[0], read_h[i, :8])
         assert same(jl.write_vec[i].right_vec[0], write_h[i, 8:])
-    # the hash itself, on tables that broadcast
+    # the hash itself (one pass on the card), on tables that broadcast,
+    # and with the write timestamps' hash h + r^2 from the same read
+    # against JAX's hash of ts + 1
     a, v, ts = (tdm.scalars_to_mont(rand_ints(4), "cpu") for _ in range(3))
+    ts2 = tdm.scalars_to_mont(rand_ints(8), "cpu").reshape(2, 4, 16)
     ch = tdm.scalars_to_mont(rand_ints(3), "cpu")
-    want = jsp._hash_poly(*(jnp.asarray(x.numpy().astype(np.uint32))
-                            for x in (a, v, ts, ch[0], ch[1], ch[2])))
+    one = tdm.scalars_to_mont([1], "cpu")[0]
+
+    def jx(*xs):
+        return [jnp.asarray(x.numpy().astype(np.uint32)) for x in xs]
+
+    want = jsp._hash_poly(*jx(a, v, ts, ch[0], ch[1], ch[2]))
     assert same(want, tsp._hash_poly(a, v, ts, ch[0], ch[1], ch[2]))
+    for t in (ts, ts2):
+        want_r = jsp._hash_poly(*jx(a, v, t, ch[0], ch[1], ch[2]))
+        want_w = jsp._hash_poly(*jx(a, v, tsp.fq.add(t, one), ch[0], ch[1],
+                                    ch[2]))
+        got_r, got_w = tsp._hash_poly(a, v, t, ch[0], ch[1], ch[2],
+                                      write=True)
+        assert same(want_r, got_r) and same(want_w, got_w)
+        assert same(want_r, tsp.hash_poly_plain(a, v, t, ch[0], ch[1],
+                                                ch[2]))

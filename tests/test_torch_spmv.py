@@ -1,100 +1,151 @@
 """K3 (sparse R1CS products) and the R1CS instance: the port's plain path
 against the JAX package's ops/spmv.py and models/r1csinstance.py on the
-same inputs. Tolerance: exact equality of the Montgomery limbs."""
+same inputs. Every JAX value of the file is computed once a run, in a
+fresh process whose result the pytest-xdist workers share (`jax_refs`);
+each case draws its inputs from a seed of its own. Tolerance: exact
+equality of the Montgomery limbs."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from spartan_parallel_tpu.core.consts import L
-from spartan_parallel_tpu.core.field import Scalar as JScalar
-from spartan_parallel_tpu.models import r1csinstance as jri
-from spartan_parallel_tpu.ops import fq as jfq
 from spartan_parallel_tpu_torch.convert import instance_from_numpy
+from spartan_parallel_tpu_torch.core.consts import L
 from spartan_parallel_tpu_torch.core.field import Scalar
 from spartan_parallel_tpu_torch.models import r1csinstance as tri
+from spartan_parallel_tpu_torch.ops import fq
 
-rng = np.random.default_rng(17)
+from .torch_shared import case_rng, in_fresh_process, shared_result
 
 
-def rnd():
+def rnd(rng):
     return int.from_bytes(rng.bytes(40), "little") % L
 
 
-def same(j, t):
-    return np.array_equal(np.asarray(j).astype(np.int64),
-                          t.numpy().astype(np.int64))
+def port(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
 
 
-def matrices():
-    """A random 8x8 matrix with empty rows/columns and repeated entries,
-    in both packages."""
-    entries = [(int(rng.integers(0, 8)), int(rng.integers(0, 8)), rnd())
-               for _ in range(20)]
-    return (jri.SparseMatPolynomial(3, 3, entries),
-            tri.SparseMatPolynomial(3, 3, entries))
+def same(want, got):
+    return np.array_equal(np.asarray(want).astype(np.int64),
+                          got.numpy().astype(np.int64))
 
 
-def test_spmv_and_eval_table_match_jax():
-    jm, tm = matrices()
-    enc = jfq.encode([rnd() for _ in range(3 * 8)]).reshape(3, 8, 16)
-    assert same(jm.multiply_vec_batched(jnp.asarray(enc), 8),
-                tm.multiply_vec_batched(torch.from_numpy(
-                    enc.astype(np.int32))))
-    rx = jfq.encode([rnd() for _ in range(8)])
-    assert same(jm.eval_table(jnp.asarray(rx), 8),
-                tm.eval_table(torch.from_numpy(rx.astype(np.int32))))
+def entries(rng):
+    """A random 8x8 matrix with empty rows/columns and repeated entries."""
+    return [(int(rng.integers(0, 8)), int(rng.integers(0, 8)), rnd(rng))
+            for _ in range(20)]
 
 
-def test_sparse_eval_matches_jax():
-    jm, tm = matrices()
-    rx = jfq.encode([rnd() for _ in range(8)])
-    ry = jfq.encode([rnd() for _ in range(8)])
-    assert same(jm.evaluate_with_tables_dev(jnp.asarray(rx), jnp.asarray(ry)),
-                tm.evaluate_with_tables(torch.from_numpy(rx.astype(np.int32)),
-                                        torch.from_numpy(ry.astype(np.int32))))
+def spmv_inputs():
+    rng = case_rng("spmv")
+    ents = entries(rng)
+    z = fq.encode([rnd(rng) for _ in range(3 * 8)]).reshape(3, 8, 16)
+    return ents, z, fq.encode([rnd(rng) for _ in range(8)])
 
 
-def test_instance_ops_match_jax():
+def sparse_eval_inputs():
+    rng = case_rng("sparse_eval")
+    ents = entries(rng)
+    return (ents, fq.encode([rnd(rng) for _ in range(8)]),
+            fq.encode([rnd(rng) for _ in range(8)]))
+
+
+def instance_inputs():
+    rng = case_rng("instance")
+    rx = [rnd(rng) for _ in range(4)]
+    ry = [rnd(rng) for _ in range(5)]
+    z = fq.encode([rnd(rng) for _ in range(32)]).reshape(1, 1, 2, 16, 16)
+    rx_tab = fq.encode([rnd(rng) for _ in range(16)])
+    return rx, ry, z, rx_tab
+
+
+def jax_refs():
+    import jax.numpy as jnp
+
+    from spartan_parallel_tpu.core.field import Scalar as JScalar
+    from spartan_parallel_tpu.models import r1csinstance as jri
+
+    def j(a):
+        return jnp.asarray(np.asarray(a).astype(np.uint32))
+
+    out = {}
+    ents, z, rx = spmv_inputs()
+    jm = jri.SparseMatPolynomial(3, 3, ents)
+    out["spmv"] = (np.asarray(jm.multiply_vec_batched(j(z), 8)),
+                   np.asarray(jm.eval_table(j(rx), 8)))
+    ents, rx, ry = sparse_eval_inputs()
+    jm = jri.SparseMatPolynomial(3, 3, ents)
+    out["sparse_eval"] = np.asarray(jm.evaluate_with_tables_dev(j(rx),
+                                                                j(ry)))
+    jinst, jv, ji = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=3)
+    rx, ry, z, rx_tab = instance_inputs()
+    ev = jinst.evaluate([JScalar(x) for x in rx], [JScalar(x) for x in ry])
+    out["instance"] = {
+        "vars": jv, "inputs": ji, "digest": jinst.get_digest(),
+        "evaluate": [int(x) for x in ev],
+        "block": [np.asarray(a.Zm) for a in jinst.multiply_vec_block(
+            1, [1], 1, [16], 16, 16, [16], j(z))],
+        "eval_table": [np.asarray(a) for a in
+                       jinst.compute_eval_table_sparse_disjoint_rounds(
+                           1, [16], 2, 16, [16], j(rx_tab))[0]]}
+    jinst, _, _ = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=5)
+    out["from_numpy"] = (
+        [(np.asarray(m.rows), np.asarray(m.cols), m.vals)
+         for m in (jinst.A_list[0], jinst.B_list[0], jinst.C_list[0])],
+        jinst.get_digest())
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_ref(tmp_path_factory):
+    return shared_result(tmp_path_factory, "jax_spmv_refs",
+                         lambda: in_fresh_process(jax_refs, timeout=900))
+
+
+def test_spmv_and_eval_table_match_jax(jax_ref):
+    ents, z, rx = spmv_inputs()
+    tm = tri.SparseMatPolynomial(3, 3, ents)
+    spmv, table = jax_ref["spmv"]
+    assert same(spmv, tm.multiply_vec_batched(port(z)))
+    assert same(table, tm.eval_table(port(rx)))
+
+
+def test_sparse_eval_matches_jax(jax_ref):
+    ents, rx, ry = sparse_eval_inputs()
+    tm = tri.SparseMatPolynomial(3, 3, ents)
+    assert same(jax_ref["sparse_eval"],
+                tm.evaluate_with_tables(port(rx), port(ry)))
+
+
+def test_instance_ops_match_jax(jax_ref):
     """The synthetic instance, its digest, Az/Bz/Cz, the phase-2 tables
     and the verifier's evaluations."""
-    jinst, jv, ji = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=3)
+    want = jax_ref["instance"]
     tinst, tv, ti = tri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=3,
                                                device="cpu")
-    assert jv == tv and ji == ti
-    assert jinst.get_digest() == tinst.get_digest()
+    assert want["vars"] == tv and want["inputs"] == ti
+    assert want["digest"] == tinst.get_digest()
 
-    rx = [rnd() for _ in range(4)]
-    ry = [rnd() for _ in range(5)]
-    jev = jinst.evaluate([JScalar(x) for x in rx], [JScalar(x) for x in ry])
+    rx, ry, z, rx_tab = instance_inputs()
     tev = tinst.evaluate([Scalar(x) for x in rx], [Scalar(x) for x in ry],
                          device="cpu")
-    assert [int(x) for x in jev] == [int(x) for x in tev]
-
-    z = jfq.encode([rnd() for _ in range(32)]).reshape(1, 1, 2, 16, 16)
-    jz, tz = jnp.asarray(z), torch.from_numpy(z.astype(np.int32))
-    for a, b in zip(jinst.multiply_vec_block(1, [1], 1, [16], 16, 16, [16],
-                                             jz),
-                    tinst.multiply_vec_block(1, [1], 1, [16], 16, 16, [16],
-                                             tz)):
-        assert same(a.Zm, b.Zm)
-    rx_tab = jfq.encode([rnd() for _ in range(16)])
-    for a, b in zip(
-            jinst.compute_eval_table_sparse_disjoint_rounds(
-                1, [16], 2, 16, [16], jnp.asarray(rx_tab))[0],
-            tinst.compute_eval_table_sparse_disjoint_rounds(
-                1, [16], 2, 16, [16],
-                torch.from_numpy(rx_tab.astype(np.int32)))[0]):
+    assert want["evaluate"] == [int(x) for x in tev]
+    got = tinst.multiply_vec_block(1, [1], 1, [16], 16, 16, [16], port(z))
+    assert len(got) == len(want["block"])
+    for a, b in zip(want["block"], got):
+        assert same(a, b.Zm)
+    got = tinst.compute_eval_table_sparse_disjoint_rounds(
+        1, [16], 2, 16, [16], port(rx_tab))[0]
+    assert len(got) == len(want["eval_table"])
+    for a, b in zip(want["eval_table"], got):
         assert same(a, b)
 
 
-def test_instance_from_numpy_carries_the_jax_instance():
-    jinst, _, _ = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=5)
-    mats = [(m.rows, m.cols, m.vals)
-            for m in (jinst.A_list[0], jinst.B_list[0], jinst.C_list[0])]
+def test_instance_from_numpy_carries_the_jax_instance(jax_ref):
+    mats, digest = jax_ref["from_numpy"]
     tinst = instance_from_numpy(16, 16, 4, *mats, device="cpu")
-    assert tinst.get_digest() == jinst.get_digest()
+    assert tinst.get_digest() == digest
 
 
 def test_matrix_rejects_out_of_range_indices():

@@ -6,7 +6,9 @@ A fixture that proves with the JAX package (minutes of XLA compiles on a
 cold cache) computes its plain result once per run through
 `shared_result`; the other workers wait for it and read it back.
 `in_fresh_process` runs a computation in a new interpreter, so that the
-XLA executables it compiles do not stay in a worker. `msm_edge_scalars`
+XLA executables it compiles do not stay in a worker; `case_rng` seeds a
+case's inputs from its key, so that such a process and every worker
+draw the same. `msm_edge_scalars`
 lists the scalars at the edges of K2's signed digit recoding. `device_rounds`
 gives CPU tables the port's device-resident sumcheck rounds. `rank_jobs`
 is what each rank of a multi-rank launch runs
@@ -16,6 +18,7 @@ is what each rank of a multi-rank launch runs
 import contextlib
 import os
 import pickle
+import zlib
 
 from filelock import FileLock
 
@@ -32,6 +35,15 @@ def shared_result(tmp_path_factory, name: str, compute):
         out = compute()
         path.write_bytes(pickle.dumps(out))
         return out
+
+
+def case_rng(*key):
+    """The numpy generator of one test case's inputs, seeded from the
+    case's key alone: the same in every worker and in the fresh process
+    that computes the case's JAX values."""
+    import numpy as np
+
+    return np.random.default_rng(zlib.crc32(repr(key).encode()))
 
 
 def in_fresh_process(fn, *args, timeout=None):
