@@ -26,8 +26,11 @@ Phases, each printing one JSON line:
      layer's last bind, with and without the dot-product stack, the hash
      layer, one launch a call, also as the read and write hash of three
      matrices) at the shapes of the 2^20 SNARK of phase 7; after phase 8,
-     K1's dot of a list of tables (`fq_dot_many`) and K5's round of every
-     class at the largest shapes find_min's run gave them;
+     K1's dot of a list of tables (`fq_dot_many`), K5's round of every
+     class, K3's batched products (every matrix of a call in one launch:
+     the largest Az/Bz/Cz call, phase-2 table call and multi_evaluate)
+     and K7's evaluation of ShiftProofs' tables (one launch), at the
+     largest shapes find_min's run gave them, on its inputs;
   3. fixed tapes, proved on the card and on the CPU, whose serialized
      proofs must be identical and verify: the NIZK at 2^10 constraints x
      2^10 variables x 10 inputs (a tampered proof must fail), and the
@@ -89,8 +92,12 @@ frames of the functions they call (K11 may keep at most K11_STACK_MAX
 bytes), `ptxas_k4` for K4's twelve instances and K5's two, `ptxas_k1`
 for K1's kernels, and `ptxas_k6` for K6's round, bind and tree kernels.
 Phases 5, 7 and 8 count the calls of K5's round of every class
-(pc_round), of _evaluate_many and of _hash_poly, and fail unless each
-took one launch (a classed round also one eq_fold): `launch_structure`.
+(pc_round), of _evaluate_many, of _hash_poly and of the four K3 methods
+of R1CSInstance (multiply_vec_block, _classed,
+compute_eval_table_sparse_disjoint_rounds, multi_evaluate), phase 8 also
+of ShiftProofs.prove, and fail unless each took one launch (a classed
+round also one eq_fold; a ShiftProofs.prove one K7 launch):
+`launch_structure`.
 Phases 4, 5, 6, 7 (2^20) and 8 time their proves untraced, then prove the same
 tape once more under kernel_trace, whose CUDA events time every launch:
 the lines give that run's prove seconds (`traced_prove_s`, the events'
@@ -98,8 +105,10 @@ cost beside `prove_s`), K2's, K11's and fold_points' launches and ms
 inside its witness commits and proves (`k2`, `k11`, `fold`), every
 kernel's, summed over its launches (`by_kernel`), and every caller's
 (`by_caller`: a launch under the counter its wrapper counted it under
-too, K1's eq_fold, pc_bind, hash_poly, rlc_eval, abc_comb, dotp_eval,
-or else under the first function outside ops/ that made it).
+too, K1's eq_fold, pc_bind, hash_poly, abc_comb, dotp_eval, or else
+under the first function outside ops/ that made it), K1's, K3's, K5's
+and K7's sums (`groups`), and the launches that found the card idle
+(`starved`: their ms hold the host's time up to the launch).
 Phase 2 starts with `fp_chain`: csrc/fp_chain.cu runs a 4096-step
 dependent chain of field products on one warp for fp.cuh's product as
 K9-K11 called it, inlined, fe.cuh's product and squaring, fp10.cuh's
@@ -109,9 +118,9 @@ product. fold_points is held at every pair count the bullet rounds
 launch (512 ... 32) and at 8; a `chain_products` line gives the
 dependent products on K11's and the fold's critical path in the
 one-thread designs and in these, counted from the code.
-Phase 2 also holds K7 (the powers of the shift proofs' challenge) and the
-rlc dot at the find_min path's shape and K7 at 2^20, and the
-device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
+Phase 2 also holds K7's powers (fq_powers, on no main path) and the rlc
+dot K1 ran before at the find_min path's shape and the powers at 2^20,
+and the device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
 states; a check kernel, its code runs on the path inside K11), K9
 (ristretto ENCODE) and K10 (comb commitments) at the NIZK 2^20's shapes
 (a sumcheck's 20 deltas of 4 G + h and its claim of G + h) and at 4096
@@ -412,7 +421,7 @@ class KernelTrace:
     by CUDA events, with the stage Timers (utils/timer.py) open around it;
     K2's (rows, points), K11's table sets and fold_points' pairs as its
     shape; and its caller: the counter its wrapper counted it under too
-    (K1's callers eq_fold, pc_bind, hash_poly, rlc_eval, dotp_eval,
+    (K1's callers eq_fold, pc_bind, hash_poly, dotp_eval,
     abc_comb, ...: the `counter=` of ops/fq.py) or, with none, the first
     function outside ops/ on the stack ("@file:function"). The events
     cost each launch two records on the stream: time the path in a run
@@ -473,6 +482,22 @@ class KernelTrace:
         return dict(sorted(out.items(),
                            key=lambda kv: -sum(t for _, t in kv[1].values())))
 
+    def starved(self, stage=None) -> dict:
+        """{kernel counter: [launches, ms, host ms]} of the launches under
+        `stage` whose start event the card had passed before the host
+        enqueued the kernel: their ms hold the host's time from the start
+        event to the launch (host ms) beside the kernel's."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for c in self.launches:
+            if c["starved"] and (stage is None or stage in c["stages"]):
+                n, t, h = out.get(c["counter"], (0, 0.0, 0.0))
+                out[c["counter"]] = (n + 1, t + c["ev"][0].elapsed_time(
+                    c["ev"][1]), h + c["host_ms"])
+        return out
+
     def largest(self, stage):
         """(rows, points) of the largest K2 launch under `stage`."""
         return max((c["shape"] for c in self.launches
@@ -508,7 +533,9 @@ def kernel_trace():
         site = "@?" if f is None else \
             f"@{os.path.basename(f.f_code.co_filename)}:{f.f_code.co_name}"
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
         ev[0].record()
+        starved = ev[0].query()  # the card is idle: it waits for the host
         tr.in_launch = True
         try:
             launch(counter, entry, *args)
@@ -518,7 +545,8 @@ def kernel_trace():
         tr.launches.append({
             "counter": counter, "ev": ev, "stages": tuple(tr.open),
             "shape": tuple(args[i] for i in SHAPE_ARGS.get(entry, ())),
-            "caller": None, "site": site})
+            "caller": None, "site": site, "starved": starved,
+            "host_ms": (time.perf_counter() - t0) * 1e3})
 
     def traced_count(name):
         # a wrapper's count of its caller follows its launch
@@ -536,14 +564,37 @@ def kernel_trace():
         kernels.launch, kernels.count = launch, count
 
 
+# the kernels whose counters kernel_groups sums: K1 (csrc/fq.cu), K3
+# (csrc/spmv.cu), K5 (csrc/sumcheck.cu k_pc_round), K7 (csrc/uni.cu)
+KERNEL_GROUPS = {
+    "k1": lambda k: (k.startswith("fq_") and k != "fq_powers")
+    or k in ("hash_poly", "eq_evals"),
+    "k3": lambda k: k in ("spmv_batched", "eval_table", "sparse_eval"),
+    "k5": lambda k: k.startswith("sc_pc_round"),
+    "k7": lambda k: k in ("uni_evaluate", "fq_powers")}
+
+
+def kernel_groups(by_kernel: dict) -> dict:
+    """[launches, ms] of K1, K3, K5 and K7 from a by_kernel dict."""
+    out = {}
+    for key, mine in KERNEL_GROUPS.items():
+        picked = [v for k, v in by_kernel.items() if mine(k)]
+        out[key] = [sum(n for n, _ in picked), sum(t for _, t in picked)]
+    return out
+
+
 def traced(tr, stages) -> dict:
     """K2's, K11's and fold_points' summaries under each (key, stage),
-    every kernel's launches and ms (`by_kernel`) and each caller's
-    (`by_caller`)."""
+    every kernel's launches and ms (`by_kernel`), K1's, K3's, K5's and
+    K7's sums (`groups`), each caller's (`by_caller`) and the launches
+    that found the card idle (`starved`)."""
     out = {kernel: {key: tr.summary(stage, kernel) for key, stage in stages}
            for kernel in TRACED}
     out["by_kernel"] = {key: tr.by_kernel(stage) for key, stage in stages}
+    out["groups"] = {key: kernel_groups(bk)
+                     for key, bk in out["by_kernel"].items()}
     out["by_caller"] = {key: tr.by_caller(stage) for key, stage in stages}
+    out["starved"] = {key: tr.starved(stage) for key, stage in stages}
     return out
 
 
@@ -699,28 +750,34 @@ def check_kernels(log_n: int, dev, reps: int):
                           "new": 4 + 2 * (top + adds),
                           "top_bit": top, "additions": adds}})
 
-    # K3 on the synthetic instance of 2^log_n constraints
+    # K3 on the synthetic instance of 2^log_n constraints, one matrix a
+    # call (a one-matrix stack: the NIZK's calls take its three at once);
+    # bounds count the operand elements the entries gather, each once
     inst, _, _ = produce_synthetic_r1cs(1, [1], n, n, 10, device=dev)
     A = inst.A_list[0]
-    csr, csc, coo = A._tensors(dev)
+    csr, csc = A.stacks(dev)
     nnz = A.get_num_nz_entries()
     z = rand_field((1, 2 * n), gen, dev)
     rx = rand_field((n,), gen, dev)
     ry = rand_field((2 * n,), gen, dev)
-    idx_bytes = 4 * (nnz + n + 1)
+    n_cols, n_rows = (spmv_operand(st, [1], [0], 1, (0, 0))
+                      for st in (csr, csc))
     record("spmv_batched", "spmv.cu", "spartan_parallel_tpu/ops/spmv.py:52",
-           lambda: spmv.spmv_batched(*csr, z),
-           lambda: spmv.spmv_plain(*csr, z), field_err,
-           idx_bytes + nnz * E + 2 * n * E + n * E, nnz * IMAD_FQ_MUL)
+           lambda: spmv.spmv_batched(csr, z),
+           lambda: spmv.spmv_plain(csr, z), field_err,
+           4 * (nnz + n + 1) + nnz * E + n_cols * E + n * E,
+           nnz * IMAD_FQ_MUL, extra={"operand_elements": n_cols})
     record("eval_table", "spmv.cu", "spartan_parallel_tpu/ops/spmv.py:71",
-           lambda: spmv.eval_table(*csc, rx),
-           lambda: spmv.eval_table_plain(*csc, rx), field_err,
-           4 * (nnz + 2 * n + 1) + nnz * E + n * E + 2 * n * E,
-           nnz * IMAD_FQ_MUL)
+           lambda: spmv.eval_table(csc, rx),
+           lambda: spmv.eval_table_plain(csc, rx), field_err,
+           4 * (nnz + 2 * n + 1) + nnz * E + n_rows * E + 2 * n * E,
+           nnz * IMAD_FQ_MUL, extra={"operand_elements": n_rows})
     record("sparse_eval", "spmv.cu", "spartan_parallel_tpu/ops/spmv.py:87",
-           lambda: spmv.sparse_eval(*coo, rx, ry),
-           lambda: spmv.sparse_eval_plain(*coo, rx, ry), field_err,
-           8 * nnz + nnz * E + 3 * n * E + E, 2 * nnz * IMAD_FQ_MUL)
+           lambda: spmv.sparse_eval(csr, rx, ry),
+           lambda: spmv.sparse_eval_plain(csr, rx, ry), field_err,
+           8 * nnz + nnz * E + (n_rows + n_cols) * E + E,
+           2 * nnz * IMAD_FQ_MUL, extra={"operand_elements": n_rows + n_cols})
+    del inst, A, csr, csc
 
     # K4: phase 1 at X = n, phase 2 at W * Y = 2 n; a fused step (bind of
     # the previous round's challenge, then this round's evaluations): the
@@ -866,7 +923,11 @@ NO_PATH = {"scale_points": "no caller in the JAX package "
                            "(spartan_parallel_tpu/ops/curve.py:178)",
            "fq_sub": "its path launches were SPARK's hash layer, now "
                      "a kernel of its own (k_hash); fq.sub and fq.neg "
-                     "still launch it"}
+                     "still launch it",
+           "fq_powers": "ShiftProofs evaluates its tables in one K7 launch "
+                        "(uni_evaluate), which makes the powers in "
+                        "registers",
+           "rlc_eval": "its dot is fused into K7's uni_evaluate"}
 
 
 def check_parallel_kernels(dev, record, pts):
@@ -1333,12 +1394,12 @@ def check_k6_choices(n: int, dev, gen, leaves):
 
 
 def check_uni_kernels(dev, gen, record, E):
-    """The univariate evaluation of ShiftProofs at the shape of the
-    find_min run of phase 8 (its largest shift table, the perm-exec w3
-    table of 8 x 128 = 1024 entries): K7's powers of the challenge, and
-    the rlc dot on K1; and K7 at 2^20, where its row reads against a
-    bound. Bytes: the table written once (the dot: both tables read
-    once); operations: n - 1 field products (the dot: n)."""
+    """K7's powers of one scalar (fq_powers, on no main path since
+    ShiftProofs evaluates its tables in one launch) at find_min's largest
+    shift table (the perm-exec w3 table of 8 x 128 = 1024 entries) and
+    at 2^20, and the rlc dot on K1 that uni_evaluate ran before. Bytes:
+    the table written once (the dot: both tables read once); operations:
+    n - 1 field products (the dot: n)."""
     from spartan_parallel_tpu_torch.ops import fq, uni
 
     src = "spartan_parallel_tpu/models/dense_mlpoly.py"
@@ -1347,14 +1408,119 @@ def check_uni_kernels(dev, gen, record, E):
         record(name, "uni.cu", f"{src}:200",
                lambda n=n: uni.fq_powers(c, n),
                lambda n=n: uni.fq_powers_plain(c, n), field_err, n * E,
-               (n - 1) * IMAD_FQ_MUL, path="findmin", counter="fq_powers")
+               (n - 1) * IMAD_FQ_MUL, path="findmin", counter="fq_powers",
+               extra={"off_path": NO_PATH["fq_powers"]})
     n = 1024
     z = rand_field((n,), gen, dev)
     pw = uni.fq_powers(c, n)
     record("rlc_eval", "fq.cu", f"{src}:211",
            lambda: fq.dot(z, pw, 0, counter="rlc_eval"),
            lambda: fq.dot_plain(z, pw, 0), field_err, (2 * n + 1) * E,
-           n * IMAD_FQ_MUL, path="findmin")
+           n * IMAD_FQ_MUL, path="findmin",
+           extra={"off_path": NO_PATH["rlc_eval"]})
+
+
+def spmv_operand(st, counts, mats, kk: int, x_strides) -> int:
+    """The operand elements a spmv_many call reads: for each instance i
+    and right-hand side q < counts[i], the distinct operand indices of
+    its kk matrices' entries (offsets i xis + q xqs + idx, counted once
+    where instances share them)."""
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import spmv
+
+    xis, xqs = x_strides
+    offs = []
+    for i, (c, m) in enumerate(zip(counts, mats)):
+        cols = torch.unique(torch.cat([spmv.matrix(st, kk * m + k)[2]
+                                       for k in range(kk)])).to(torch.int64)
+        q = torch.arange(c, device=cols.device)
+        offs.append((i * xis + q[:, None] * xqs + cols).reshape(-1))
+    return int(torch.unique(torch.cat(offs)).numel())
+
+
+def sparse_eval_operand(st) -> int:
+    """The eq_rx and eq_ry elements a sparse_eval_many call reads: the
+    distinct rows and the distinct columns of its stack's entries."""
+    import torch
+
+    return int(torch.unique(st.seg).numel() + torch.unique(st.idx).numel())
+
+
+def spmv_work(st, counts, mats, kk: int, operand: int):
+    """(bytes, 32-bit multiplies) the least a K3 call needs: each matrix
+    it reads (pointer, indices, values) and the operand elements it
+    gathers read once, each output written once, a product for each
+    entry and right-hand side (spmv_many) or two for each entry
+    (sparse_eval_many, mats None); operand: the distinct operand
+    elements the call reads (spmv_operand, sparse_eval_operand)."""
+    E = 64
+    used = range(len(st.host)) if mats is None else sorted(
+        {kk * m + k for m in mats for k in range(kk)})
+    nnz = sum(int(st.host[m, 2]) for m in used)
+    nbytes = 4 * (st.nseg + 1) * len(used) + nnz * (8 + E) + operand * E
+    if mats is None:
+        return nbytes + len(used) * E, 2 * nnz * IMAD_FQ_MUL
+    prods = sum(c * int(st.host[kk * m + k, 2])
+                for c, m in zip(counts, mats) for k in range(kk))
+    return nbytes + kk * sum(counts) * st.nseg * E, prods * IMAD_FQ_MUL
+
+
+def check_findmin_k3_k7(dev, record, largest):
+    """K3's and K7's batched entries at the largest calls of find_min's
+    run (phase 8), on the inputs that run gave them: spmv_many of the
+    largest Az/Bz/Cz call (every matrix and right-hand side of it, counted
+    as spmv_batched) and of the largest phase-2 table call (eval_table),
+    sparse_eval_many of the largest multi_evaluate, and uni_eval_many of
+    ShiftProofs' tables, each in one launch against its plain version."""
+    import torch
+
+    from spartan_parallel_tpu_torch.ops import spmv, uni
+
+    jax_r1cs = "spartan_parallel_tpu/models/r1csinstance.py"
+    for name, counter, line, caller in (
+            ("spmv_many_findmin", "spmv_batched", 52,
+             f"{jax_r1cs}:222/253 multiply_vec_block(_classed)"),
+            ("eval_table_many_findmin", "eval_table", 71,
+             f"{jax_r1cs}:280 compute_eval_table_sparse_disjoint_rounds")):
+        st, x, out, counts, mats, kk, xs, os_, bits = largest[counter]
+        got, want = torch.zeros_like(out), torch.zeros_like(out)
+        nbytes, imads = spmv_work(st, counts, mats, kk, spmv_operand(
+            st, counts, mats, kk, xs))
+        record(name, "spmv.cu", f"spartan_parallel_tpu/ops/spmv.py:{line}",
+               lambda: spmv.spmv_many(st, x, got, counts, mats, kk, xs, os_,
+                                      bits, counter=counter),
+               lambda: spmv.spmv_many_plain(st, x, want, counts, mats, kk,
+                                            xs, os_, bits),
+               field_err, nbytes, imads, path="findmin", counter=counter,
+               extra={"caller": caller, "instances": len(counts),
+                      "right_hand_sides": counts, "segments": st.nseg,
+                      "entries": int(sum(st.host[kk * m + k, 2]
+                                         for m in mats for k in range(kk))),
+                      "shape_from": "the largest call of phase 8"})
+    st, rx, ry = largest["sparse_eval"]
+    nbytes, imads = spmv_work(st, None, None, 0, sparse_eval_operand(st))
+    record("sparse_eval_many_findmin", "spmv.cu",
+           "spartan_parallel_tpu/ops/spmv.py:87",
+           lambda: spmv.sparse_eval_many(st, rx, ry),
+           lambda: spmv.sparse_eval_many_plain(st, rx, ry), field_err,
+           nbytes, imads, path="findmin", counter="sparse_eval",
+           extra={"caller": f"{jax_r1cs}:302 multi_evaluate",
+                  "matrices": len(st.host),
+                  "entries": int(st.host[:, 2].sum()),
+                  "shape_from": "the largest call of phase 8"})
+    tabs, c = largest["uni_evaluate"]
+    n_all = sum(int(t.shape[0]) for t in tabs)
+    record("uni_evaluate_many_findmin", "uni.cu",
+           "spartan_parallel_tpu/models/dense_mlpoly.py:200",
+           lambda: uni.uni_eval_many(tabs, c),
+           lambda: uni.uni_eval_many_plain(tabs, c), field_err,
+           (n_all + len(tabs)) * 64, (2 * n_all - len(tabs)) * IMAD_FQ_MUL,
+           path="findmin", counter="uni_evaluate",
+           extra={"caller": "spartan_parallel_tpu/models/snark.py "
+                            "ShiftProofs.prove (+ dense_mlpoly.py:211)",
+                  "tables": [int(t.shape[0]) for t in tabs],
+                  "shape_from": "ShiftProofs.prove of phase 8"})
 
 
 # 32-bit integer instructions of the device round's pieces: a Keccak-f
@@ -1946,16 +2112,37 @@ def spark_k6_launches(proof, counts: dict, tr) -> dict:
 def path_calls():
     """Counts the calls of the functions whose launches phases 5, 7 and 8
     hold to one a call (K5's round of every class, ops/sumcheck.py
-    pc_round; SPARK's _evaluate_many and _hash_poly, K1), and keeps the
+    pc_round; SPARK's _evaluate_many and _hash_poly, K1; the four K3
+    methods of R1CSInstance; ShiftProofs.prove, K7), and keeps the
     largest fused pc_round's and the largest _evaluate_many's arguments'
-    shapes (`largest`), for the rows phase 8 adds at find_min's shapes."""
+    shapes and the largest K3 and K7 calls' arguments (`largest`), for
+    the rows phase 8 adds at find_min's shapes."""
+    from spartan_parallel_tpu_torch.models import dense_mlpoly as dm
+    from spartan_parallel_tpu_torch.models import r1csinstance as ri
+    from spartan_parallel_tpu_torch.models import snark as sn
     from spartan_parallel_tpu_torch.models import sparse_mlpoly as sp
+    from spartan_parallel_tpu_torch.ops import spmv
     from spartan_parallel_tpu_torch.ops import sumcheck as sck
 
+    K3_METHODS = ("multiply_vec_block", "multiply_vec_block_classed",
+                  "compute_eval_table_sparse_disjoint_rounds",
+                  "multi_evaluate")
     calls = {"pc_round": 0, "evaluate_many": 0, "hash_poly": 0,
-             "largest": {}}
-    pc_round, evaluate_many, hash_poly = (sck.pc_round, sp._evaluate_many,
-                                          sp._hash_poly)
+             "shift_proofs": 0, "largest": {}, "work": {},
+             **{m: 0 for m in K3_METHODS}}
+    saved = [(sck, "pc_round"), (sp, "_evaluate_many"), (sp, "_hash_poly"),
+             (spmv, "spmv_many"), (spmv, "sparse_eval_many"),
+             (dm, "uni_eval_many")] + [(ri.R1CSInstance, m)
+                                       for m in K3_METHODS]
+    before = [getattr(obj, name) for obj, name in saved]
+    pc_round, evaluate_many, hash_poly, spmv_many, sparse_eval_many, \
+        uni_eval_many = before[:6]
+    shift_prove = sn.ShiftProofs.prove
+
+    def keep(key, work, value):
+        if work > calls["work"].get(key, -1):
+            calls["work"][key] = work
+            calls["largest"][key] = value
 
     def counted_pc_round(tp, tq, tx, tabs, p0s, Ss, n_half, mode,
                          prev=None):
@@ -1984,20 +2171,58 @@ def path_calls():
         calls["hash_poly"] += 1
         return hash_poly(*args, **kw)
 
-    sck.pc_round, sp._evaluate_many, sp._hash_poly = (
-        counted_pc_round, counted_evaluate_many, counted_hash_poly)
+    def kept_spmv_many(st, x, out, counts, mats, kk, xs, os_, bits=(0, 0),
+                       counter="spmv_batched"):
+        keep(counter, sum(c * int(st.host[kk * m + k, 2] + st.nseg)
+                          for c, m in zip(counts, mats) for k in range(kk)),
+             (st, x, out, list(counts), list(mats), kk, xs, os_, bits))
+        return spmv_many(st, x, out, counts, mats, kk, xs, os_, bits,
+                         counter)
+
+    def kept_sparse_eval_many(st, rx_tab, ry_tab):
+        keep("sparse_eval", int(st.host[:, 2].sum()), (st, rx_tab, ry_tab))
+        return sparse_eval_many(st, rx_tab, ry_tab)
+
+    def kept_uni_eval_many(tables, c):
+        keep("uni_evaluate", sum(int(t.shape[0]) for t in tables),
+             (list(tables), c))
+        return uni_eval_many(tables, c)
+
+    def counted_method(name, fn):
+        def method(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return method
+
+    def counted_shift_prove(*args, **kw):
+        calls["shift_proofs"] += 1
+        return shift_prove(*args, **kw)
+
+    for (obj, name), fn in zip(saved, [
+            counted_pc_round, counted_evaluate_many, counted_hash_poly,
+            kept_spmv_many, kept_sparse_eval_many, kept_uni_eval_many] + [
+            counted_method(m, f) for m, f in zip(K3_METHODS, before[6:])]):
+        setattr(obj, name, fn)
+    sn.ShiftProofs.prove = staticmethod(counted_shift_prove)
     try:
         yield calls
     finally:
-        sck.pc_round, sp._evaluate_many, sp._hash_poly = (
-            pc_round, evaluate_many, hash_poly)
+        for (obj, name), fn in zip(saved, before):
+            setattr(obj, name, fn)
+        sn.ShiftProofs.prove = staticmethod(shift_prove)
 
 
-def launch_structure(calls, counts, classed: bool, spark: bool) -> dict:
-    """The launches a call of the redesigned K1 and K5 pieces must take,
-    against the calls counted by path_calls: a classed round is one K5
-    launch for all its classes and one eq_fold; _evaluate_many and
-    _hash_poly are one launch a call. Raises when the run disagrees."""
+def launch_structure(calls, counts, classed: bool, spark: bool,
+                     shift: bool = False) -> dict:
+    """The launches a call of the redesigned pieces must take, against
+    the calls counted by path_calls: a classed round is one K5 launch for
+    all its classes and one eq_fold; _evaluate_many and _hash_poly are one
+    launch a call; each of the four K3 methods one K3 launch a call
+    (multiply_vec_block and _classed under spmv_batched,
+    compute_eval_table_sparse_disjoint_rounds under eval_table,
+    multi_evaluate under sparse_eval); with shift, a ShiftProofs.prove one
+    K7 launch (uni_evaluate) and no fq_powers or rlc_eval. Raises when the
+    run disagrees."""
     out = {}
     if classed:
         out["pc_round_calls"] = calls["pc_round"]
@@ -2018,6 +2243,22 @@ def launch_structure(calls, counts, classed: bool, spark: bool) -> dict:
                 out["fq_dot_many"] != calls["evaluate_many"] or \
                 out["hash_poly"] != calls["hash_poly"]:
             raise AssertionError(f"SPARK's K1 calls: {out}")
+    k3 = {"spmv_batched": calls["multiply_vec_block"]
+          + calls["multiply_vec_block_classed"],
+          "eval_table": calls["compute_eval_table_sparse_disjoint_rounds"],
+          "sparse_eval": calls["multi_evaluate"]}
+    out["k3_calls"] = k3
+    out["k3"] = {k: counts.get(k, 0) for k in k3}
+    if 0 in k3.values() or out["k3"] != k3:
+        raise AssertionError(f"K3 calls: {out}")
+    if shift:
+        out["shift_proofs_calls"] = calls["shift_proofs"]
+        out["k7"] = {k: counts.get(k, 0)
+                     for k in ("uni_evaluate", "fq_powers", "rlc_eval")}
+        if calls["shift_proofs"] == 0 or out["k7"] != {
+                "uni_evaluate": calls["shift_proofs"], "fq_powers": 0,
+                "rlc_eval": 0}:
+            raise AssertionError(f"K7 calls: {out}")
     return out
 
 
@@ -2783,7 +3024,7 @@ def main() -> int:
         run = zkvm_run(zk_args, zk_pa, dev, tape)
     counts["findmin"] = dict(kernels.launches)
     findmin_structure = launch_structure(calls, counts["findmin"], True,
-                                         True)
+                                         True, shift=True)
     findmin_largest = calls["largest"]
     mem = torch.cuda.max_memory_allocated()
     # the same proof with the host round loop on the card
@@ -2884,6 +3125,8 @@ def main() -> int:
                 extra={"shape_from": "the largest fused classed round of "
                        "phase 8"})
     del classes, eqs
+    check_findmin_k3_k7(dev, record, findmin_largest)
+    del findmin_largest
     dp_modes = ("sc_p1_round_q", "sc_p1_round_p", "sc_p2_round_w",
                 "sc_p2_round_p")
     if not all(counts["dp_uniform"].get(k) for k in dp_modes):

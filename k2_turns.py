@@ -15,19 +15,23 @@ same tape with the host round loop) and with uniform counts [256] x 4
 (phase 6, the dense prover, device rounds), the 9-stage SNARK at the
 find_min shape (phase 8) and the SNARK with SPARK at 2^20 x 2^20 x 10
 inputs (phase 7), each under its fixed tape, with every kernel launch
-timed by CUDA events (chip_smoke.kernel_trace). Every prove here is
-traced, in both trees and both forms alike, so its seconds carry the
-events' cost and compare only with each other (chip_smoke.py's
+timed by CUDA events (chip_smoke.kernel_trace), after one untraced
+prove of the counter program has loaded every kernel library. Every
+prove here is traced, in both trees and both forms alike, so its
+seconds carry the events' cost and compare only with each other
+(chip_smoke.py's
 `prove_s` are untraced). Prints one JSON line: the card, the tree, each
 prove's seconds and kernel launches, K2's, K11's and fold_points'
-launches and ms inside the prove, K1's and K5's ([launches, ms]: `k1`,
-`k5`) and every kernel's (`by_kernel`,
+launches and ms inside the prove, K1's, K3's, K5's and K7's ([launches,
+ms]: `k1`, `k3`, `k5`, `k7`) and every kernel's (`by_kernel`,
 summed over its launches; K2 also inside the witness commits: NIZK
 `witness_commit`, config 4's commit, find_min `input_commit`; the
 SNARK's eval proof, `R1CSEvalProof::prove`, apart) and every caller's
 (`by_caller`: each launch under the counter its wrapper counted it
 under too, e.g. K1's eq_fold, hash_poly, dotp_eval, or else the first
-function outside ops/ that made it), config 4's phase-1 sumcheck
+function outside ops/ that made it), the launches whose start event
+the card had passed before the host enqueued them (`starved`: their
+traced ms hold host time), config 4's phase-1 sumcheck
 seconds in both forms, each proof's sha256, and K2's bullet rows alone
 (1 x 514 ... 1 x 34, 50 launches each: chip_smoke.py phase 2 times them
 too, but in one tree a call, and a comparison of two trees needs both
@@ -87,6 +91,10 @@ def main() -> int:
     kernels.build()
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
+    # a kernel library loads at its first launch (ctypes opens it and its
+    # CUDA runtime starts, milliseconds inside that launch's events): one
+    # small prove first, untraced, launches them all
+    cs.zkvm_run(*ex.build_counter_program(), dev, b"\x07" * 32)
     out = {"card": card, "root": root,
            "kernel_source_sha256": h.hexdigest()[:16],
            "build_s": build_s}
@@ -144,14 +152,8 @@ def main() -> int:
     for cell in ("nizk", "dp_skewed", "dp_uniform", "findmin", "snark"):
         bk = out[cell]["by_kernel"]["prove"]
         out[cell]["launches"] = sum(n for n, _ in bk.values())
-        # K1 (csrc/fq.cu; fq_powers is K7) and K5 (csrc/sumcheck.cu
-        # k_pc_round) summed
-        for key, mine in (("k1", lambda k: k.startswith("fq_") and k !=
-                           "fq_powers" or k in ("hash_poly", "eq_evals")),
-                          ("k5", lambda k: k.startswith("sc_pc_round"))):
-            picked = [v for k, v in bk.items() if mine(k)]
-            out[cell][key] = [sum(n for n, _ in picked),
-                              sum(t for _, t in picked)]
+        # K1, K3, K5 and K7 summed (chip_smoke.KERNEL_GROUPS)
+        out[cell].update(cs.kernel_groups(bk))
     # K2's bullet rows alone, at chip_smoke.py phase 2's shapes and points
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
     from spartan_parallel_tpu_torch.ops import msm

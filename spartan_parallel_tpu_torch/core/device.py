@@ -17,3 +17,12 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def indexed(device) -> torch.device:
+    """`device` as a torch.device, a CUDA one with its index filled in
+    ("cuda" and "cuda:0" name one card): the key of a per-device cache."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

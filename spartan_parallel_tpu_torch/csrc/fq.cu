@@ -145,7 +145,6 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
     k_dot(const __grid_constant__ DotArgs a) {
   __shared__ int4 tiles[REDUCE_THREADS / 32][128];
   __shared__ uint32_t sh[REDUCE_THREADS * 8];
-  __shared__ bool last;
   int4* tile = tiles[threadIdx.x >> 5];
   const long long j = blockIdx.x;
   const long long o = a.many ? 0 : j / a.inner, in = a.many ? 0 : j % a.inner;
@@ -167,29 +166,8 @@ __global__ void __launch_bounds__(REDUCE_THREADS)
       fq_add(acc, acc, x);
     }
   }
-  block_sum(acc, sh);
-  const unsigned nc = gridDim.y;
-  if (nc == 1) {
-    if (threadIdx.x == 0) store16(a.out + 16 * j, acc);
-    return;
-  }
-  if (threadIdx.x == 0) {
-    copy8(a.part + 8 * (j * nc + blockIdx.y), acc);
-    __threadfence();
-    last = atomicInc(&dot_tickets[j], nc - 1) == nc - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  zero8(acc);
-  for (unsigned y = threadIdx.x; y < nc; y += REDUCE_THREADS) {
-    const uint4* p = reinterpret_cast<const uint4*>(a.part + 8 * (j * nc + y));
-    const uint4 lo = __ldcg(p), hi = __ldcg(p + 1);
-    const uint32_t x[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    fq_add(acc, acc, x);
-  }
-  block_sum(acc, sh);
-  if (threadIdx.x == 0) store16(a.out + 16 * j, acc);
+  ticket_sum(acc, sh, a.part, j * gridDim.y, blockIdx.y, gridDim.y,
+             &dot_tickets[j], a.out + 16 * j);
 }
 
 // SPARK's hash layer over (outer, n): each operand at o * s_o + i * s_i

@@ -6,7 +6,8 @@
 // integers and the JAX package. Code that runs on several lanes runs here
 // through its host model: the same step functions, lane by lane, in the
 // kernel's order (lanes.cuh hq_*, keccak.cuh keccak_lanes_host and HostX,
-// ristretto.cuh comb_host, host_eq_evals for k_eq_evals). Each entry maps over n elements of 16-limb
+// ristretto.cuh comb_host, host_eq_evals for k_eq_evals, host_spmv_many
+// for k_spmv's work split). Each entry maps over n elements of 16-limb
 // int32 values (points: 4 x 16 limbs; states and encodings: one int32 per
 // byte).
 #include <vector>
@@ -17,6 +18,7 @@
 #include "fq.cuh"
 #include "lanes.cuh"
 #include "msm.cuh"
+#include "spmv.cuh"
 #include "zk_round.cuh"
 
 // a point's coordinates as the four lanes of a group hold them
@@ -414,6 +416,86 @@ void host_eq_evals(const int32_t* rs, int ell, int32_t* out) {
                  &r[8 * (ell - 1 - m)]);
     for (int i = 0; i < (1 << k); ++i)
       store16(out + 16 * ((c << k) + i), &tab[8 * i]);
+  }
+}
+
+// K3's host model (csrc/spmv.cu k_spmv): each warp's range as spmv_range
+// gives it, its items summed in order (the sums the warp's segmented scans
+// form), a segment written at its last item, the partials of long
+// segments kept a warp at a time and added up as the last block does.
+// Arguments as spmv_many_launch takes them (host arrays; pend and longs
+// are the model's own).
+void host_spmv_many(const int32_t* ptr, const int32_t* seg,
+                    const int32_t* idx, const int32_t* vals,
+                    const int32_t* empty, const long long* meta,
+                    const int32_t* x, int32_t* out, const long long* geom,
+                    const int* flags, const int* minst, const int* q,
+                    int ninst, const long long* off) {
+  const int kk = flags[0], nprob = ninst * kk;
+  std::vector<long long> nnz(nprob), nemp(nprob), ent(nprob), emp(nprob),
+      pp(nprob);
+  std::vector<int> qq(nprob);
+  for (int j = 0; j < nprob; ++j) {
+    const long long* m = meta + SPMV_META * (kk * minst[j / kk] + j % kk);
+    pp[j] = m[0];
+    ent[j] = m[1];
+    nnz[j] = m[2];
+    emp[j] = m[3];
+    nemp[j] = m[4];
+    qq[j] = q[j / kk];
+  }
+  const SpmvProbs P{off,       nnz.data(), nemp.data(), ent.data(),
+                    emp.data(), pp.data(),  qq.data(),   nprob};
+  const SpmvMap M{geom[0], geom[1], geom[2], geom[3],
+                  geom[4], kk,      flags[1], flags[2]};
+  const long long total = off[nprob];
+  const long long warps = (total + SPMV_RANGE - 1) / SPMV_RANGE;
+  std::vector<uint32_t> pend(16 * warps);
+  std::vector<long long> longs;
+  for (long long w = 0; w < warps; ++w) {
+    const SpmvRange r = spmv_range(P, ptr, seg, empty, w, total);
+    uint32_t acc[8];
+    long long key = -1;
+    for (long long d = r.start; d < r.end; ++d) {
+      SpmvItem it;
+      spmv_decode(P, ptr, seg, empty, d, it);
+      const long long k = spmv_out(M, it);
+      uint32_t v[8];
+      zero8(v);
+      if (it.e >= 0) {
+        uint32_t a[8], b[8];
+        load16(vals + 16 * it.e, a);
+        load16(x + 16 * spmv_x(M, it, idx), b);
+        fq_mul(v, a, b);
+      }
+      if (k == key)
+        fq_add(acc, acc, v);
+      else
+        copy8(acc, v);
+      key = k;
+      if (d + 1 == it.b) {
+        if (d < r.head_b)
+          copy8(&pend[16 * w], acc);
+        else
+          store16(out + 16 * k, acc);
+        key = -1;
+      }
+    }
+    if (key >= 0) {
+      if (r.head_b > r.end) {
+        copy8(&pend[16 * w], acc);
+      } else {
+        copy8(&pend[16 * w + 8], acc);
+        longs.insert(longs.end(), {w, r.tail_b, key});
+      }
+    }
+  }
+  for (std::size_t i = 0; i < longs.size(); i += 3) {
+    uint32_t acc[8];
+    zero8(acc);
+    for (long long v = longs[i]; v <= (longs[i + 1] - 1) / SPMV_RANGE; ++v)
+      fq_add(acc, acc, &pend[16 * v + (v == longs[i] ? 8 : 0)]);
+    store16(out + 16 * longs[i + 2], acc);
   }
 }
 

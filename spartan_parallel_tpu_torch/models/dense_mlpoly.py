@@ -10,8 +10,8 @@ is the JAX package's, byte for byte; the tensors are PyTorch:
   * the eq table is one K1 launch (csrc/fq.cu k_eq_evals);
   * Hyrax row commitments are one batched MSM (K2) of all sqrt(N) rows;
   * the L*Z row contraction and evaluations are K1 dot reductions;
-  * a table read as univariate coefficients (ShiftProofs) is evaluated
-    from the powers of the point (K7) and one K1 dot.
+  * tables read as univariate coefficients (ShiftProofs) are evaluated
+    at a point in one K7 launch.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from ..core.edwards import RistrettoPoint, multiscalar_mul
 from ..core.field import Scalar
 from ..ops import fq, kernels
 from ..ops import limbs as lb
-from ..ops.uni import fq_powers
+from ..ops.uni import uni_eval_many
 from ..utils.errors import ProofVerifyError
 from .commitments import commit_rows_device, commit_scalar
 from .sigma import DotProductProofGens, DotProductProofLog
@@ -140,13 +140,19 @@ class EqPolynomial:
         )
 
 
+def uni_evaluate_many(polys, c: Scalar) -> list:
+    """The table of each polynomial read as univariate coefficients,
+    evaluated at c (the ShiftProofs trick, lib.rs:390-419): one K7 launch
+    for every table (ops/uni.py uni_eval_many, counted as uni_evaluate)
+    and one read to the host."""
+    if not polys:
+        return []
+    return mont_to_scalars(uni_eval_many([p.Zm for p in polys], int(c)))
+
+
 def uni_evaluate(poly: "DensePolynomial", c: Scalar) -> Scalar:
-    """The table of `poly` read as univariate coefficients, evaluated at c
-    (the ShiftProofs trick, lib.rs:390-419): the powers of c by K7, then
-    one K1 dot counted as rlc_eval."""
-    Zm = poly.Zm
-    powers = fq_powers(scalars_to_mont([c], Zm.device)[0], Zm.shape[0])
-    return mont_to_scalar(fq.dot(Zm, powers, axis=0, counter="rlc_eval"))
+    """uni_evaluate_many of one polynomial."""
+    return uni_evaluate_many([poly], c)[0]
 
 
 class IdentityPolynomial:

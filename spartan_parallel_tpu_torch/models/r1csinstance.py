@@ -2,10 +2,11 @@
 
 Reference: src/r1csinstance.rs:20 (R1CSInstance), src/sparse_mlpoly.rs:33
 (SparseMatPolynomial). The matrices live on the host as COO arrays and, per
-device, as CSR (rows) and CSC (columns) tensors for the sparse kernels of
-ops/spmv.py (K3): Az/Bz/Cz (multiply_vec_block, r1csinstance.rs:363), the
-phase-2 ABC tables (compute_eval_table_sparse_disjoint_rounds,
-r1csinstance.rs:484) and the verifier's A/B/C evaluations. The SPARK
+device, stacked by rows and by columns for the sparse kernels of
+ops/spmv.py (K3), one launch a call over every matrix: Az/Bz/Cz
+(multiply_vec_block, r1csinstance.rs:363), the phase-2 ABC tables
+(compute_eval_table_sparse_disjoint_rounds, r1csinstance.rs:484) and the
+verifier's A/B/C evaluations (multi_evaluate). The SPARK
 commitment to the matrices and its eval proof (R1CSCommitment,
 R1CSEvalProof) wrap models/sparse_mlpoly.py.
 """
@@ -18,8 +19,6 @@ import torch
 from ..core import device as _device
 from ..core.consts import L
 from ..ops import fq, spmv
-from ..ops import limbs as lb
-from ..ops.sumcheck import rev_perm
 from ..utils.timer import Timer
 from . import sparse_mlpoly as sp
 from .custom_mlpoly import DensePolynomialPqx
@@ -91,41 +90,30 @@ class SparseMatPolynomial:
             self._mont = fq.encode(list(uniq)).reshape(-1, 16)[idx]
         return self._mont
 
-    def _tensors(self, device):
-        """(csr, csc, coo) on `device`: csr = (row_ptr, cols, vals) sorted
-        by row, csc = (col_ptr, rows, vals) sorted by column, coo = (rows,
-        cols, vals) in entry order; vals in Montgomery form. The matrix is
-        static, so the sorts run once on the host."""
-        key = str(device)
+    def stacks(self, device):
+        """(csr, csc) on `device`: the matrix as a one-matrix K3 stack by
+        rows and by columns (ops/spmv.py Stack), values in Montgomery
+        form, built once (the matrix is static)."""
+        key = _device.indexed(device)
         if key not in self._dev:
             vm = self.vals_mont()
-            nr, nc = 1 << self.num_vars_x, 1 << self.num_vars_y
-
-            def compressed(major, minor, n):
-                perm = np.argsort(major, kind="stable")
-                ptr = np.zeros(n + 1, dtype=np.int32)
-                ptr[1:] = np.cumsum(np.bincount(major, minlength=n))
-                return (lb.to_device(ptr, device),
-                        lb.to_device(minor[perm], device),
-                        lb.to_device(vm[perm], device))
-
             self._dev[key] = (
-                compressed(self.rows, self.cols, nr),
-                compressed(self.cols, self.rows, nc),
-                (lb.to_device(self.rows, device),
-                 lb.to_device(self.cols, device), lb.to_device(vm, device)))
+                spmv.stack([(self.rows, self.cols, vm)],
+                           1 << self.num_vars_x, device),
+                spmv.stack([(self.cols, self.rows, vm)],
+                           1 << self.num_vars_y, device))
         return self._dev[key]
 
     def multiply_vec_batched(self, z: torch.Tensor) -> torch.Tensor:
         """z: (Q, ncols, 16) Montgomery -> (Q, num_rows, 16)."""
-        return spmv.spmv_batched(*self._tensors(z.device)[0], z)
+        return spmv.spmv_batched(self.stacks(z.device)[0], z)
 
     def eval_table(self, rx_tab: torch.Tensor) -> torch.Tensor:
         """(num_cols, 16) table M^T eq(rx) (sparse_mlpoly.rs:505,524)."""
-        return spmv.eval_table(*self._tensors(rx_tab.device)[1], rx_tab)
+        return spmv.eval_table(self.stacks(rx_tab.device)[1], rx_tab)
 
     def evaluate_with_tables(self, rx_tab, ry_tab) -> torch.Tensor:
-        return spmv.sparse_eval(*self._tensors(rx_tab.device)[2], rx_tab,
+        return spmv.sparse_eval(self.stacks(rx_tab.device)[0], rx_tab,
                                 ry_tab)
 
 
@@ -157,6 +145,7 @@ class R1CSInstance:
         self.B_list = [mat(b) for b in B_list]
         self.C_list = [mat(c) for c in C_list]
         self._digest = None
+        self._stacks = {}
 
     def get_num_instances(self) -> int:
         return self.num_instances
@@ -209,31 +198,54 @@ class R1CSInstance:
         self._digest = _deflate_digest(b"".join(parts))
         return self._digest
 
+    def _stack(self, device, by_cols: bool) -> spmv.Stack:
+        """Every instance's A, B and C (matrix 3 p + k) as one K3 stack on
+        `device`, by rows (Az/Bz/Cz, the verifier's evaluations) or by
+        columns (the phase-2 tables), built once for the matrices the
+        instance holds (a sorted copy holds them in another order)."""
+        mats = tuple(m for p in range(self.num_instances)
+                     for m in (self.A_list[p], self.B_list[p],
+                               self.C_list[p]))
+        device = _device.indexed(device)
+        key = (device, by_cols, tuple(map(id, mats)))
+        hit = self._stacks.get(key)
+        if hit is None:
+            st = spmv.stack(
+                [(m.cols, m.rows, m.vals_mont()) if by_cols else
+                 (m.rows, m.cols, m.vals_mont()) for m in mats],
+                self.num_vars if by_cols else self.max_num_cons, device)
+            # the matrices stay referenced, so their ids stay theirs
+            hit = self._stacks[key] = (mats, st)
+        return hit[1]
+
     # --- Az/Bz/Cz (r1csinstance.rs:363-438) -------------------------------
     def multiply_vec_block(self, num_instances, num_proofs, max_num_proofs,
                            num_inputs, max_num_inputs, max_num_cons,
                            num_cons, z_nat):
         """z_nat: (P, Q_max, W, Y_max, 16) Montgomery, natural q/y order.
         Returns (Az, Bz, Cz) as DensePolynomialPqx with W = 1, q and x
-        bit-reversed."""
+        bit-reversed: one K3 launch writes every instance's products in
+        place (counted as spmv_batched)."""
         assert self.num_instances in (1, num_instances)
         assert max_num_cons == self.max_num_cons
         P = next_pow2(num_instances)
         dev = z_nat.device
-        out = [torch.zeros((P, max_num_proofs, 1, max_num_cons, 16),
-                           dtype=torch.int32, device=dev) for _ in range(3)]
-        for p in range(num_instances):
-            p_inst = 0 if self.num_instances == 1 else p
-            qp = num_proofs[p]
-            zp = z_nat[p, :qp].reshape(qp, -1, 16)
-            for k, mats in enumerate((self.A_list, self.B_list, self.C_list)):
-                out[k][p, :qp, 0] = mats[p_inst].multiply_vec_batched(zp)
-        qperm = torch.as_tensor(rev_perm(max_num_proofs), device=dev)
-        xperm = torch.as_tensor(rev_perm(max_num_cons), device=dev)
-        return tuple(
-            DensePolynomialPqx(o.index_select(1, qperm).index_select(3, xperm),
-                               list(num_proofs), list(num_cons))
-            for o in out)
+        counts = [int(q) for q in num_proofs[:num_instances]]
+        full = P == num_instances and all(q == max_num_proofs
+                                          for q in counts)
+        out = (torch.empty if full else torch.zeros)(
+            (3, P, max_num_proofs, 1, max_num_cons, 16), dtype=torch.int32,
+            device=dev)
+        z = z_nat.contiguous()
+        mats = [0 if self.num_instances == 1 else p
+                for p in range(num_instances)]
+        spmv.spmv_many(self._stack(dev, False), z, out, counts, mats, 3,
+                       (z.stride(0) // 16, z.stride(1) // 16),
+                       (P * max_num_proofs * max_num_cons,
+                        max_num_proofs * max_num_cons, max_num_cons),
+                       (log2(max_num_proofs), log2(max_num_cons)))
+        return tuple(DensePolynomialPqx(out[k], list(num_proofs),
+                                        list(num_cons)) for k in range(3))
 
     def multiply_vec_block_classed(self, p0: int, num_proofs_c: int,
                                    max_num_cons: int, z_nat_c):
@@ -242,21 +254,21 @@ class R1CSInstance:
         z_nat_c: (P_c, Q_c, W, Y, 16) natural-order slice of z. Returns
         three (P_c, Q_c, X, 16) tensors with q bit-reversed within the
         class and x bit-reversed (the class layout of ops/sumcheck.py
-        pc_*). No p padding: classes never bind p before they merge."""
+        pc_*), from one K3 launch (counted as spmv_batched). No p
+        padding: classes never bind p before they merge."""
         P_c, Q_c = int(z_nat_c.shape[0]), int(z_nat_c.shape[1])
         assert num_proofs_c == Q_c and max_num_cons == self.max_num_cons
         dev = z_nat_c.device
-        out = [torch.empty((P_c, Q_c, max_num_cons, 16), dtype=torch.int32,
-                           device=dev) for _ in range(3)]
-        for i in range(P_c):
-            p_inst = 0 if self.num_instances == 1 else p0 + i
-            zp = z_nat_c[i].reshape(Q_c, -1, 16)
-            for k, mats in enumerate((self.A_list, self.B_list, self.C_list)):
-                out[k][i] = mats[p_inst].multiply_vec_batched(zp)
-        qperm = torch.as_tensor(rev_perm(Q_c), device=dev)
-        xperm = torch.as_tensor(rev_perm(max_num_cons), device=dev)
-        return tuple(o.index_select(1, qperm).index_select(2, xperm)
-                     for o in out)
+        out = torch.empty((3, P_c, Q_c, max_num_cons, 16), dtype=torch.int32,
+                          device=dev)
+        z = z_nat_c.contiguous()
+        mats = [0 if self.num_instances == 1 else p0 + i
+                for i in range(P_c)]
+        spmv.spmv_many(self._stack(dev, False), z, out, [Q_c] * P_c, mats,
+                       3, (z.stride(0) // 16, z.stride(1) // 16),
+                       (P_c * Q_c * max_num_cons, Q_c * max_num_cons,
+                        max_num_cons), (log2(Q_c), log2(max_num_cons)))
+        return out[0], out[1], out[2]
 
     # --- phase-2 ABC tables (r1csinstance.rs:484-540) ----------------------
     def compute_eval_table_sparse_disjoint_rounds(
@@ -264,27 +276,30 @@ class R1CSInstance:
             rx_tab):
         """rx_tab: (max_num_cons, 16) eq table over natural rows. Returns
         per-instance (A_tab, B_tab, C_tab) of shape (num_segs_pad,
-        max_num_cols, 16) in natural y order."""
+        max_num_cols, 16) in natural y order, from one K3 launch (counted
+        as eval_table)."""
         assert self.num_instances in (1, num_instances)
         assert next_pow2(num_segs) * max_num_cols == self.num_vars
-        out = []
-        for p in range(self.num_instances):
-            out.append(tuple(
-                mats[p].eval_table(rx_tab).reshape(
-                    next_pow2(num_segs), max_num_cols, 16)
-                for mats in (self.A_list, self.B_list, self.C_list)))
-        return out
+        P, ncols = self.num_instances, self.num_vars
+        out = torch.empty((3, P, ncols, 16), dtype=torch.int32,
+                          device=rx_tab.device)
+        spmv.spmv_many(self._stack(rx_tab.device, True), rx_tab.contiguous(),
+                       out, [1] * P, list(range(P)), 3, (0, 0),
+                       (P * ncols, ncols, 0), counter="eval_table")
+        shape = (next_pow2(num_segs), max_num_cols, 16)
+        return [tuple(out[k, p].reshape(shape) for k in range(3))
+                for p in range(P)]
 
     # --- verifier-side matrix evaluations (r1csinstance.rs:583-652) -------
     def multi_evaluate(self, rx, ry, device=None):
+        """Every instance's (A, B, C) at (rx, ry), as a list of Scalars:
+        one K3 launch (counted as sparse_eval) and one read to the
+        host."""
         dev = self.device if device is None else _device.resolve(device)
         rx_tab = EqPolynomial(list(rx)).evals_dev(dev)
         ry_tab = EqPolynomial(list(ry)).evals_dev(dev)
-        outs = []
-        for p in range(self.num_instances):
-            for m in (self.A_list[p], self.B_list[p], self.C_list[p]):
-                outs.append(m.evaluate_with_tables(rx_tab, ry_tab))
-        return mont_to_scalars(torch.stack(outs))
+        return mont_to_scalars(spmv.sparse_eval_many(
+            self._stack(dev, False), rx_tab, ry_tab))
 
     def multi_evaluate_bound_rp(self, rp, rx, ry, device=None):
         """Every instance's (A, B, C) at (rx, ry), and each of the three

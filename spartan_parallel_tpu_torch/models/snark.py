@@ -44,7 +44,7 @@ from .dense_mlpoly import (
     mont_to_scalars,
     next_pow2,
     scalars_to_mont,
-    uni_evaluate,
+    uni_evaluate_many,
 )
 from .r1csinstance import (
     R1CSCommitmentGens,
@@ -196,18 +196,15 @@ class ShiftProofs:
                 openings[p].append(entry)
 
         c = transcript.challenge_scalar(b"challenge_c")
-        # each polynomial evaluated at c as a univariate: K7's powers of c
-        # and one K1 dot (uni_evaluate)
-        orig_evals, shifted_evals = [], []
-        C_orig_evals, C_shifted_evals = [], []
-        for p in range(num_instances):
-            oe = uni_evaluate(orig_polys[p], c)
-            se = uni_evaluate(shifted_polys[p], c)
-            orig_evals.append(oe)
-            shifted_evals.append(se)
-            C_orig_evals.append(commit_scalar(oe, _ZERO, gens_1).compress())
-            C_shifted_evals.append(
-                commit_scalar(se, _ZERO, gens_1).compress())
+        # every polynomial evaluated at c as a univariate: one K7 launch
+        # (uni_evaluate_many); no transcript append falls between them
+        evals = uni_evaluate_many(list(orig_polys) + list(shifted_polys), c)
+        orig_evals = evals[:num_instances]
+        shifted_evals = evals[num_instances:]
+        C_orig_evals = [commit_scalar(e, _ZERO, gens_1).compress()
+                        for e in orig_evals]
+        C_shifted_evals = [commit_scalar(e, _ZERO, gens_1).compress()
+                           for e in shifted_evals]
 
         proof, _eval = PolyEvalProof.prove_uni_batched_instances(
             list(orig_polys) + list(shifted_polys), c,

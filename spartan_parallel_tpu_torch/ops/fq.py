@@ -201,17 +201,11 @@ def bind(t: torch.Tensor, r: torch.Tensor, axis: int, n_half: int,
     return out
 
 
-_SMS = {}
-
-
 def _dot_chunk(outputs: int, K: int, device) -> int:
     """Terms a block of K1's dot sums: halved from _DOT_CHUNK down to 256
     (a term a thread) until the grid has six blocks an SM, two waves of
     the blocks resident at once."""
-    nsm = _SMS.get(device)
-    if nsm is None:
-        nsm = _SMS[device] = \
-            torch.cuda.get_device_properties(device).multi_processor_count
+    nsm = kernels.sms(device)
     chunk = _DOT_CHUNK
     while chunk > 256 and outputs * -(-K // chunk) < 6 * nsm:
         chunk //= 2

@@ -11,10 +11,10 @@ cudaGetLastError() and `launch` raises when it is not 0.
 `launches` counts, per wrapper, the calls that launched a kernel on the
 card; a function built on K1's wrappers (eq_fold, pc_bind, the ABC
 combination, SPARK's dot-product circuits, the evaluations of
-`_evaluate_many`, the rlc dot of ShiftProofs) also counts its launches
-under its own name. The eq table and SPARK's hash layer are K1 kernels of
-their own, counted as eq_evals and hash_poly. CPU tensors take the plain
-PyTorch versions and are not counted.
+`_evaluate_many`) also counts its launches under its own name. The eq
+table and SPARK's hash layer are K1 kernels of their own, counted as
+eq_evals and hash_poly. CPU tensors take the plain PyTorch versions and
+are not counted.
 
 K8-K11 (zk_round.cu) carry the device-resident ZK sumcheck rounds: the
 Keccak permutation, ristretto compression, comb commitments and the round
@@ -37,6 +37,8 @@ import shutil
 import subprocess
 
 import torch
+
+from ..core import device as _device
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(__file__)))
@@ -62,8 +64,9 @@ _ENTRIES = {
     "fold_points_launch": ("msm", [_P, _P, _P, _P, _I64, _P]),
     "point_sum_launch": ("msm", [_P, _P, _P, _I64, _I64, _P]),
     "scale_points_launch": ("msm", [_P, _P, _P, _I64, _P]),
-    "spmv_launch": ("spmv", [_P, _P, _P, _P, _P, _I64, _I64, _I64, _P]),
-    "sparse_eval_launch": ("spmv", [_P, _P, _P, _P, _P, _P, _P, _I64, _P]),
+    "spmv_many_launch": ("spmv", [_P] * 12 + [_I32, _P, _P, _P, _P]),
+    "sparse_eval_many_launch": ("spmv", [_P] * 7 + [_I32, _I32, _P, _P,
+                                                    _P]),
     "p1_round_launch": ("sumcheck", [_P] * 10 + [_I64, _I64, _I64, _I32,
                                                  _I64, _I32, _P, _P, _P, _P]),
     "p2_round_launch": ("sumcheck", [_P] * 6 + [_I64, _I64, _I64, _I64, _I32,
@@ -74,7 +77,9 @@ _ENTRIES = {
                         + [_I64] * 7 + [_I32] + [_P] * 6),
     "pt_tree_pass_launch": ("product", [_P, _P, _I64, _I64, _I32, _P]),
     "pt_tree_final_launch": ("product", [_P, _P, _I64, _I64, _P]),
-    "fq_powers_launch": ("uni", [_P, _P, _I64, _P]),
+    "fq_powers_launch": ("uni", [_P, _P, _I64, _I32, _I32, _P]),
+    "uni_eval_many_launch": ("uni", [_P, _P, _I32, _P, _I32, _P, _I32, _P,
+                                     _P, _P]),
     "keccak_launch": ("zk_round", [_P, _P, _I64, _P]),
     "compress_launch": ("zk_round", [_P, _P, _I64, _P]),
     "comb_launch": ("zk_round", [_P, _I32, _P, _P, _I64, _P]),
@@ -196,6 +201,19 @@ def launch(counter: str, entry: str, *args) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_sms: dict = {}
+
+
+def sms(device) -> int:
+    """The streaming multiprocessors of a CUDA device (asked once)."""
+    device = _device.indexed(device)
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
 
 
 def require_cuda(*ts) -> None:

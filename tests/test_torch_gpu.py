@@ -123,19 +123,82 @@ def test_msm_and_fold_kernels(dev):
 
 
 def test_spmv_kernels(dev):
+    """K3's single-matrix entries, one launch each, on the synthetic
+    instance."""
     from spartan_parallel_tpu_torch.models.r1csinstance import (
         produce_synthetic_r1cs,
     )
 
     inst, _, _ = produce_synthetic_r1cs(1, [1], 64, 64, 4, device=dev)
-    csr, csc, coo = inst.B_list[0]._tensors(dev)
+    csr, csc = inst.B_list[0].stacks(dev)
     z = rand_field((2, 128), dev, 5)
     rx, ry = rand_field((64,), dev, 6), rand_field((128,), dev, 7)
-    assert torch.equal(spmv.spmv_batched(*csr, z), spmv.spmv_plain(*csr, z))
-    assert torch.equal(spmv.eval_table(*csc, rx),
-                       spmv.eval_table_plain(*csc, rx))
-    assert torch.equal(spmv.sparse_eval(*coo, rx, ry),
-                       spmv.sparse_eval_plain(*coo, rx, ry))
+    before = dict(kernels.launches)
+    assert torch.equal(spmv.spmv_batched(csr, z), spmv.spmv_plain(csr, z))
+    assert torch.equal(spmv.eval_table(csc, rx),
+                       spmv.eval_table_plain(csc, rx))
+    assert torch.equal(spmv.sparse_eval(csr, rx, ry),
+                       spmv.sparse_eval_plain(csr, rx, ry))
+    for k in ("spmv_batched", "eval_table", "sparse_eval"):
+        assert kernels.launches[k] == before.get(k, 0) + 1
+
+
+def _stack(dev, nseg, ncols, shapes, seed):
+    """A stack of matrices, each (entries in segment 0, entries at operand
+    index 0, random entries)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mats = []
+    for major0, minor0, extra in shapes:
+        n = major0 + minor0 + extra
+        major = np.concatenate([np.zeros(major0, np.int64),
+                                rng.integers(0, nseg, minor0 + extra)])
+        minor = np.concatenate([rng.integers(0, ncols, major0),
+                                np.zeros(minor0, np.int64),
+                                rng.integers(0, ncols, extra)])
+        vals = rand_field((n,), dev, seed + len(mats)).cpu().numpy()
+        mats.append((major, minor, vals))
+    return spmv.stack(mats, nseg, dev)
+
+
+@pytest.mark.parametrize("by_cols", [False, True])
+def test_spmv_many_kernel(dev, by_cols):
+    """k_spmv over every matrix and right-hand side of a call in one
+    launch: three instances of distinct matrices executed [5, 3, 0] times,
+    a segment of 3,000 entries (long: it crosses several warps' ranges),
+    an operand index of 2,000, empty segments, q and s bit-reversed,
+    against spmv_many's plain version; then the same one matrix for every
+    instance."""
+    nseg, ncols = (64, 256) if not by_cols else (256, 64)
+    shapes = [(3000, 2000, 500), (5, 0, 40), (0, 0, 0)] * 3
+    st = _stack(dev, nseg, ncols, shapes, 11 + by_cols)
+    assert st.longest > spmv.SPMV_CAP
+    counts = [5, 3, 0]
+    x = rand_field((3, 8, ncols), dev, 13)
+    for mats in ([0, 1, 2], [1, 1, 1]):
+        got = torch.zeros((3, 3, 8, nseg, 16), dtype=torch.int32,
+                          device=dev)
+        want = torch.zeros_like(got)
+        args = (counts, mats, 3, (8 * ncols, ncols),
+                (3 * 8 * nseg, 8 * nseg, nseg), (3, 8 if by_cols else 6))
+        before = kernels.launches.get("spmv_batched", 0)
+        spmv.spmv_many(st, x, got, *args)
+        assert kernels.launches["spmv_batched"] == before + 1
+        spmv.spmv_many_plain(st, x, want, *args)
+        assert torch.equal(got, want)
+
+
+def test_sparse_eval_many_kernel(dev):
+    """k_sparse_eval: every matrix of a stack in one launch, matrices of
+    0, 45 and 300,000 entries (many ticketed chunks)."""
+    st = _stack(dev, 1024, 2048, [(0, 0, 0), (5, 0, 40),
+                                  (100000, 50000, 150000)], 17)
+    rx, ry = rand_field((1024,), dev, 18), rand_field((2048,), dev, 19)
+    before = kernels.launches.get("sparse_eval", 0)
+    got = spmv.sparse_eval_many(st, rx, ry)
+    assert kernels.launches["sparse_eval"] == before + 1
+    assert torch.equal(got, spmv.sparse_eval_many_plain(st, rx, ry))
 
 
 def test_sumcheck_kernels(dev):
@@ -555,6 +618,23 @@ def test_powers_kernel(dev, n):
     assert torch.equal(fq.dot(z, got, 0, counter="rlc_eval"),
                        fq.dot_plain(z, got, 0))
     assert kernels.launches["rlc_eval"] == before + 1
+
+
+def test_uni_eval_many_and_powers_kernels(dev):
+    """K7 past the blocks resident at once: fq_powers at 2^20 + 37 entries
+    and uni_eval_many of tables of 1, 7, 1,000 and 2^20 + 37 entries at
+    one point (one launch), each against its plain version."""
+    from spartan_parallel_tpu_torch.ops import uni
+
+    n = (1 << 20) + 37
+    c = 0x0123456789ABCDEF << 180 | 12345
+    cm = torch.from_numpy(fq.encode([c])).to(dev)[0]
+    assert torch.equal(uni.fq_powers(cm, n), uni.fq_powers_plain(cm, n))
+    tabs = [rand_field((m,), dev, 20 + m % 7) for m in (1, 7, 1000, n)]
+    before = kernels.launches.get("uni_evaluate", 0)
+    got = uni.uni_eval_many(tabs, c)
+    assert kernels.launches["uni_evaluate"] == before + 1
+    assert torch.equal(got, uni.uni_eval_many_plain(tabs, c))
 
 
 def test_counter_snark_card_matches_cpu(dev):

@@ -1,5 +1,6 @@
 """The CUDA kernels' per-element arithmetic (csrc/fq.cuh, fp.cuh, fe.cuh,
-curve.cuh), K1's eq table split into chunks (csrc/eq.cuh), K2's signed digits, cached points and bucket combination
+curve.cuh), K1's eq table split into chunks (csrc/eq.cuh), K3's work split
+(csrc/spmv.cuh), K2's signed digits, cached points and bucket combination
 (csrc/msm.cuh, host_check.cpp), the lane-split point operations and the
 fold (csrc/lanes.cuh), and the device round's transcript, encoding, comb
 commitment and tail (csrc/keccak.cuh, ristretto.cuh, zk_round.cuh) built
@@ -68,6 +69,7 @@ def lib(tmp_path_factory):
     lib.host_comb.argtypes = [vp, n, vp, vp, n, n]
     lib.host_zk_round_tail.argtypes = [vp, n, vp, vp, vp, vp, vp, vp]
     lib.host_eq_evals.argtypes = [vp, ctypes.c_int, vp]
+    lib.host_spmv_many.argtypes = [vp] * 12 + [ctypes.c_int, vp]
     return lib
 
 
@@ -449,3 +451,65 @@ def test_eq_table_chunks(lib, ell):
     lib.host_eq_evals(ptr(np.ascontiguousarray(rs)), ell, ptr(out))
     want = eq_evals_plain(torch.from_numpy(rs), ell)
     assert np.array_equal(out, want.numpy())
+
+
+def _crowded(nseg, ncols, n_major, n_minor, extra):
+    """Entries with one segment of n_major entries (segment 0) and one
+    operand index of n_minor (index 0), the rest random."""
+    major = np.concatenate([np.zeros(n_major, np.int64),
+                            rng.integers(0, nseg, n_minor + extra)])
+    minor = np.concatenate([rng.integers(0, ncols, n_major),
+                            np.zeros(n_minor, np.int64),
+                            rng.integers(0, ncols, extra)])
+    return major, minor
+
+
+# (segments, operand width, matrices (entries in segment 0, at index 0,
+# random), instance matrices, right-hand sides, kk, bit-reversed q and s)
+SPMV_CASES = {
+    "long_row": (16, 16, [(900, 0, 300)], [0, 0], [3, 1], 1, (2, 4)),
+    "long_column": (16, 64, [(700, 0, 50), (0, 600, 40), (3, 3, 9)],
+                    [0], [2], 3, (1, 0)),
+    "ragged": (32, 16, [(5, 2, 60)] * 9, [2, 0, 1], [4, 2, 0], 3, (2, 5)),
+    "empty": (8, 8, [(0, 0, 0), (0, 0, 3), (0, 0, 1)], [0, 0], [1, 2], 3,
+              (0, 3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_CASES))
+def test_spmv_work_split(lib, case):
+    """K3's work split as k_spmv runs it (csrc/spmv.cuh: ranges of 256
+    items a warp, a segment finished by the warp of its first item, long
+    segments summed from every warp's partials) against spmv_many's plain
+    version, limb for limb: a segment of 900 entries (several warps'
+    ranges), matrices of distinct instances with ragged right-hand sides
+    (one with none), empty matrices, q and s written bit-reversed."""
+    from spartan_parallel_tpu_torch.ops import spmv
+
+    nseg, ncols, shapes, mats, counts, kk, bits = SPMV_CASES[case]
+    st = spmv.stack([(*_crowded(nseg, ncols, *sh),
+                      fq.encode(rand_mod(L, sum(sh)))[:sum(sh)])
+                     for sh in shapes], nseg, "cpu")
+    ni, qmax = len(counts), 1 << max(0, (max(counts) - 1).bit_length())
+    x = fq.encode(rand_mod(L, ni * qmax * ncols)).reshape(ni, qmax, ncols,
+                                                          16)
+    xs, os_ = (qmax * ncols, ncols), (ni * qmax * nseg, qmax * nseg, nseg)
+    want = torch.zeros((kk, ni, qmax, nseg, 16), dtype=torch.int32)
+    spmv.spmv_many(st, torch.from_numpy(x), want, counts, mats, kk, xs,
+                   os_, bits)
+    got = np.zeros(want.shape, dtype=np.int32)
+    per = st.host[:, 2] + st.host[:, 4]
+    off = np.cumsum([0] + [c * int(per[kk * m + k]) for c, m in
+                           zip(counts, mats) for k in range(kk)])
+    lib.host_spmv_many(
+        *(ptr(np.ascontiguousarray(a)) for a in (
+            st.ptr.numpy(), st.seg.numpy(), st.idx.numpy(),
+            st.vals.numpy(), st.empty.numpy(), st.host, x)), ptr(got),
+        ptr(np.array(xs + os_, dtype=np.int64)),
+        ptr(np.array([kk, *bits, 0], dtype=np.int32)),
+        ptr(np.array(mats, dtype=np.int32)),
+        ptr(np.array(counts, dtype=np.int32)), ni,
+        ptr(off.astype(np.int64)))
+    assert np.array_equal(got, want.numpy())
+    if case.startswith("long"):
+        assert st.longest > spmv.SPMV_CAP

@@ -209,10 +209,24 @@ def powers_inputs(n):
     return vals[0], vals[1:]
 
 
+# the tables uni_evaluate_many evaluates at one point in one call
+MANY = [1, 7, 512, 1000]
+
+
+def many_inputs():
+    g = case_rng("uni_many")
+    c = int.from_bytes(g.bytes(40), "little") % L
+    return c, [[int.from_bytes(g.bytes(40), "little") % L for _ in range(n)]
+               for n in MANY]
+
+
 def jax_powers_refs():
     """The JAX package's powers, rlc dot and uni_evaluate of every case,
-    in one process."""
-    out = {}
+    and uni_evaluate of each of MANY's tables at one point, in one
+    process."""
+    c, zs = many_inputs()
+    out = {"many": [int(jdm.uni_evaluate(jdm.DensePolynomial.from_scalars(z),
+                                         JScalar(c))) for z in zs]}
     for n in POWERS:
         c, z = powers_inputs(n)
         jc = jdm.scalars_to_mont([c])[0]
@@ -247,6 +261,18 @@ def test_powers_and_rlc_eval_match_jax(jax_powers, n):
     tpoly = tdm.DensePolynomial.from_scalars(z, "cpu")
     assert int(tdm.uni_evaluate(tpoly, Scalar(c))) == want_uni == \
         sum(v * pow(c, i, L) for i, v in enumerate(z)) % L
+
+
+def test_uni_evaluate_many_matches_jax(jax_powers):
+    """Tables of 1, 7, 512 and 1,000 entries (padded to powers of two, as
+    a polynomial is) evaluated at one point in one call, against the JAX
+    package's uni_evaluate of each."""
+    c, zs = many_inputs()
+    polys = [tdm.DensePolynomial.from_scalars(z, "cpu") for z in zs]
+    got = [int(v) for v in tdm.uni_evaluate_many(polys, Scalar(c))]
+    assert got == jax_powers["many"] == [
+        sum(v * pow(c, i, L) for i, v in enumerate(z)) % L for z in zs]
+    assert tdm.uni_evaluate_many([], Scalar(c)) == []
 
 
 # --------------------------------------------------------------------------

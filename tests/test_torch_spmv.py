@@ -60,6 +60,36 @@ def instance_inputs():
     return rx, ry, z, rx_tab
 
 
+# P = 3 instances of distinct 16 x 32 matrices executed [4, 2, 1] times
+MULTI_PROOFS = [4, 2, 1]
+
+
+def multi_inputs():
+    """Each instance's A, B and C (entries), z (P, Q_max, W, Y) with W = 2,
+    Y = 16, an eq table over the rows and the points (rx, ry)."""
+    rng = case_rng("multi")
+    mats = [[[(int(rng.integers(0, 16)), int(rng.integers(0, 32)), rnd(rng))
+              for _ in range(int(rng.integers(1, 40)))] for _ in range(3)]
+            for _ in range(3)]
+    z = fq.encode([rnd(rng) for _ in range(3 * 4 * 32)]).reshape(
+        3, 4, 2, 16, 16)
+    rx_tab = fq.encode([rnd(rng) for _ in range(16)])
+    return (mats, z, rx_tab, [rnd(rng) for _ in range(4)],
+            [rnd(rng) for _ in range(5)])
+
+
+def crowded_inputs():
+    """A 16 x 16 matrix of 256 entries: 200 in column 0 and 40 in row 5."""
+    rng = case_rng("crowded")
+    ents = [(int(rng.integers(0, 16)), 0, rnd(rng)) for _ in range(200)]
+    ents += [(5, int(rng.integers(1, 16)), rnd(rng)) for _ in range(40)]
+    ents += [(int(rng.integers(0, 16)), int(rng.integers(1, 16)), rnd(rng))
+             for _ in range(16)]
+    z = fq.encode([rnd(rng) for _ in range(2 * 16)]).reshape(2, 16, 16)
+    return (ents, z, fq.encode([rnd(rng) for _ in range(16)]),
+            fq.encode([rnd(rng) for _ in range(16)]))
+
+
 def jax_refs():
     import jax.numpy as jnp
 
@@ -89,6 +119,23 @@ def jax_refs():
         "eval_table": [np.asarray(a) for a in
                        jinst.compute_eval_table_sparse_disjoint_rounds(
                            1, [16], 2, 16, [16], j(rx_tab))[0]]}
+    mats, z, rx_tab, rx, ry = multi_inputs()
+    jinst = jri.R1CSInstance(3, 16, [16] * 3, 32, *zip(*mats))
+    out["multi"] = {
+        "block": [np.asarray(a.Zm) for a in jinst.multiply_vec_block(
+            3, MULTI_PROOFS, 4, [16] * 3, 16, 16, [16] * 3, j(z))],
+        "classed": [np.asarray(a) for a in jinst.multiply_vec_block_classed(
+            1, 2, 16, j(z[1:3, :2]))],
+        "eval_table": [[np.asarray(a) for a in t] for t in
+                       jinst.compute_eval_table_sparse_disjoint_rounds(
+                           3, [16] * 3, 2, 16, [16] * 3, j(rx_tab))],
+        "evaluate": [int(x) for x in jinst.multi_evaluate(
+            [JScalar(x) for x in rx], [JScalar(x) for x in ry])]}
+    ents, z, rx, ry = crowded_inputs()
+    jm = jri.SparseMatPolynomial(4, 4, ents)
+    out["crowded"] = (np.asarray(jm.multiply_vec_batched(j(z), 16)),
+                      np.asarray(jm.eval_table(j(rx), 16)),
+                      np.asarray(jm.evaluate_with_tables_dev(j(rx), j(ry))))
     jinst, _, _ = jri.produce_synthetic_r1cs(1, [1], 16, 16, 4, seed=5)
     out["from_numpy"] = (
         [(np.asarray(m.rows), np.asarray(m.cols), m.vals)
@@ -140,6 +187,62 @@ def test_instance_ops_match_jax(jax_ref):
     assert len(got) == len(want["eval_table"])
     for a, b in zip(want["eval_table"], got):
         assert same(a, b)
+
+
+def _multi_instance():
+    mats, z, rx_tab, rx, ry = multi_inputs()
+    return tri.R1CSInstance(3, 16, [16] * 3, 32, *zip(*mats),
+                            device="cpu"), z, rx_tab, rx, ry
+
+
+def test_multiply_vec_block_distinct_instances_match_jax(jax_ref):
+    """Three instances of distinct matrices, executed [4, 2, 1] times (the
+    products of each written in place, q and x bit-reversed, the unused
+    (p, q) slots zero)."""
+    tinst, z, _, _, _ = _multi_instance()
+    got = tinst.multiply_vec_block(3, MULTI_PROOFS, 4, [16] * 3, 16, 16,
+                                   [16] * 3, port(z))
+    assert len(got) == 3
+    for a, b in zip(jax_ref["multi"]["block"], got):
+        assert b.Zm.shape == (4, 4, 1, 16, 16)
+        assert same(a, b.Zm)
+
+
+def test_multiply_vec_block_classed_matches_jax(jax_ref):
+    """One class: instances 1 and 2, two executions each."""
+    tinst, z, _, _, _ = _multi_instance()
+    got = tinst.multiply_vec_block_classed(1, 2, 16, port(z[1:3, :2]))
+    assert len(got) == 3
+    for a, b in zip(jax_ref["multi"]["classed"], got):
+        assert same(a, b)
+
+
+def test_eval_tables_and_multi_evaluate_match_jax(jax_ref):
+    """The phase-2 tables and the verifier's evaluations of the same three
+    instances."""
+    tinst, _, rx_tab, rx, ry = _multi_instance()
+    got = tinst.compute_eval_table_sparse_disjoint_rounds(
+        3, [16] * 3, 2, 16, [16] * 3, port(rx_tab))
+    want = jax_ref["multi"]["eval_table"]
+    assert len(got) == len(want) == 3
+    for wt, gt in zip(want, got):
+        assert len(gt) == 3
+        for a, b in zip(wt, gt):
+            assert same(a, b)
+    ev = tinst.multi_evaluate([Scalar(x) for x in rx],
+                              [Scalar(x) for x in ry], device="cpu")
+    assert [int(x) for x in ev] == jax_ref["multi"]["evaluate"]
+
+
+def test_crowded_matrix_matches_jax(jax_ref):
+    """200 of 256 entries in column 0 and 40 in row 5: Az, the column
+    table and M(rx, ry) against the JAX per-matrix functions."""
+    ents, z, rx, ry = crowded_inputs()
+    tm = tri.SparseMatPolynomial(4, 4, ents)
+    spmv, table, ev = jax_ref["crowded"]
+    assert same(spmv, tm.multiply_vec_batched(port(z)))
+    assert same(table, tm.eval_table(port(rx)))
+    assert same(ev, tm.evaluate_with_tables(port(rx), port(ry)))
 
 
 def test_instance_from_numpy_carries_the_jax_instance(jax_ref):
