@@ -116,8 +116,9 @@ ten-lane product and squaring (the ENCODE's) and fq.cuh's Montgomery
 product, checks each chain against Python's pow and prints ns per
 product. fold_points is held at every pair count the bullet rounds
 launch (512 ... 32) and at 8; a `chain_products` line gives the
-dependent products on K11's and the fold's critical path in the
-one-thread designs and in these, counted from the code.
+dependent products on the critical path of K11, the fold, K12 (a column,
+at each phase-2 D) and K13 (a point, at the timed k) in the one-thread
+designs and in these, counted from the code.
 Phase 2 also holds K7's powers (fq_powers, on no main path) and the rlc
 dot K1 ran before at the find_min path's shape and the powers at 2^20,
 and the device-resident ZK sumcheck round's kernels: K8 (Keccak-f[1600], 4096
@@ -143,9 +144,10 @@ slower), then once more in each form with each stage's SAT and eval
 proofs timed.
 Each of phases 4-8 sets the launch counts to 0 before each run and reads
 them after (phase 9's ranks before and after each job); every kernel row
-but K13's must have been launched on its path. Then the
-kernel table as one JSON line, the card line, and last {"ok": true,
-"device": {...}}. Any failure exits non-zero before that.
+but the NO_PATH ones must have been launched on its path (`launches`;
+`launches_by_path`: its counter's launches on every path that made
+some). Then the kernel table as one JSON line, the card line, and last
+{"ok": true, "device": {...}}. Any failure exits non-zero before that.
 
 Needs a CUDA card and the repository beside this script; imports nothing
 of JAX or of the JAX package.
@@ -741,14 +743,25 @@ def check_kernels(log_n: int, dev, reps: int):
                point_err, 3 * half * 256, fold_imads, counter="fold_points",
                plain_once=True, extra={"pairs": half})
     # counted, not measured: the dependent products on the critical path
-    # of K11 and of one fold, in the one-thread designs these replaced
-    # (old) and in these (new); the fold's at this run's scalars
+    # of K11, of one fold, of a K12 column and of a K13 point, in the
+    # one-thread designs these replaced (old) and in these (new; a
+    # four-lane addition 3 deep, a doubling 2, K13's set bit 3); the
+    # fold's at this run's scalars, K13's at its timed k
+    k13 = k13_scalar()
+    k13_len, k13_adds = k13.bit_length(), bin(k13).count("1")
     emit({"phase": "chain_products", "counted_from": "the kernels' code",
           "zk_round_tail": K11_CHAIN,
           "fold_points": {"old": 253 * FP_MUL_PER_DOUBLE
                           + (adds + 2) * FP_MUL_PER_ADD,
                           "new": 4 + 2 * (top + adds),
-                          "top_bit": top, "additions": adds}})
+                          "top_bit": top, "additions": adds},
+          "point_sum": {f"D={d}": {"old": FP_MUL_PER_ADD * levels(d),
+                                   "new": 3 * levels(d)}
+                        for d, _ in K12_SHAPES},
+          "scale_points": {"old": 253 * FP_MUL_PER_DOUBLE
+                           + k13_adds * FP_MUL_PER_ADD,
+                           "new": 2 * k13_len + k13_adds,
+                           "bits": k13_len, "additions": k13_adds}})
 
     # K3 on the synthetic instance of 2^log_n constraints, one matrix a
     # call (a one-matrix stack: the NIZK's calls take its three at once);
@@ -918,6 +931,24 @@ def check_kernels(log_n: int, dev, reps: int):
     return rows, paths, record
 
 
+# K12's (D, B) rows
+K12_SHAPES = ((2, 1024), (3, 1024), (4, 1024), (2, 512))
+
+
+def k13_scalar() -> int:
+    """K13's timed scalar: a seeded random k below l."""
+    import numpy as np
+
+    from spartan_parallel_tpu_torch.core.consts import L
+
+    return int.from_bytes(np.random.default_rng(13).bytes(40), "little") % L
+
+
+def levels(d: int) -> int:
+    """The levels of tree_sum's halving tree over d points."""
+    return (d - 1).bit_length()
+
+
 # kernels that no main path launches: held against their plain versions
 NO_PATH = {"scale_points": "no caller in the JAX package "
                            "(spartan_parallel_tpu/ops/curve.py:178)",
@@ -932,15 +963,17 @@ NO_PATH = {"scale_points": "no caller in the JAX package "
 
 def check_parallel_kernels(dev, record, pts):
     """The per-rank kernels of the sharded round and MSM at the shares
-    their phase-9 runs give a rank; K12 (point_sum: the sum of the sharded MSM's per-rank partials)
-    at (D, B) = (2, 1024) (the NIZK 2^20's witness commit on two ranks),
-    (4, 1024) and (2, 512) (config 4's largest block commit on two ranks);
-    K13 (scale_points) at 32 and 4096 points, held for k = 0, 1, l - 1 and
-    timed at a seeded random k. Exact limbs: both follow the plain
-    versions' order of additions. Bytes: the points read and written;
-    operations: the additions (K12's halving tree, identity pads
-    included) and K13's 253 doublings and popcount(k) additions."""
-    import numpy as np
+    their phase-9 runs give a rank; K12 (point_sum: the sum of the
+    sharded MSM's per-rank partials) at (D, B) = (2, 1024) (the NIZK
+    2^20's witness commit on two ranks),
+    (3, 1024) (an odd level, the identity pad), (4, 1024) and (2, 512)
+    (config 4's largest block commit on two ranks); K13 (scale_points)
+    at 32 and 4096 points, held for k = 0, 1, l - 1 and timed at
+    k13_scalar().
+    Exact limbs: both follow the plain versions' order of additions.
+    Bytes: the points read and written; operations: the additions
+    (K12's halving tree, identity pads included) and K13's doublings up
+    to k's top bit and popcount(k) additions."""
     import torch
 
     from spartan_parallel_tpu_torch.core.consts import L
@@ -983,8 +1016,8 @@ def check_parallel_kernels(dev, record, pts):
                replaces="spartan_parallel_tpu/parallel/msm_sharded.py:40")
 
     jax_curve = "spartan_parallel_tpu/ops/curve.py"
-    for name, d, b in (("point_sum", 2, 1024), ("point_sum_4x1024", 4, 1024),
-                       ("point_sum_2x512", 2, 512)):
+    for d, b in K12_SHAPES:
+        name = "point_sum" if (d, b) == (2, 1024) else f"point_sum_{d}x{b}"
         parts = torch.stack([torch.roll(pts[:b], k, 0) for k in range(d)])
         adds, n = 0, d
         while n > 1:
@@ -995,8 +1028,7 @@ def check_parallel_kernels(dev, record, pts):
                (d + 1) * b * 256, b * adds * FP_MUL_PER_ADD * IMAD_FP_MUL,
                counter="point_sum", path="multi_device",
                extra={"parts": d, "batch": b})
-    rng = np.random.default_rng(13)
-    k_rand = int.from_bytes(rng.bytes(40), "little") % L
+    k_rand = k13_scalar()
     for name, n in (("scale_points", 32), ("scale_points_4096", 4096)):
         p = torch.cat([torch.roll(pts, k, 0) for k in range(4)])[:n]
         p = p.contiguous()
@@ -1007,8 +1039,8 @@ def check_parallel_kernels(dev, record, pts):
                 raise AssertionError(f"{name} at k = {k}: kernel disagrees "
                                      f"with its plain version ({err})")
         kl = curve.scalar_limbs([k_rand], dev)[0]
-        ops = n * (253 * FP_MUL_PER_DOUBLE + bin(k_rand).count("1")
-                   * FP_MUL_PER_ADD) * IMAD_FP_MUL
+        ops = n * (k_rand.bit_length() * FP_MUL_PER_DOUBLE
+                   + bin(k_rand).count("1") * FP_MUL_PER_ADD) * IMAD_FP_MUL
         record(name, "msm.cu", jax_curve + ":144",
                lambda p=p: curve.scale_points(p, k_rand),
                lambda p=p, kl=kl: curve.scale_points_plain(p, kl),
@@ -3143,6 +3175,8 @@ def main() -> int:
     for row in rows:
         path, counter = paths[row["name"]]
         row["launches"] = counts[path].get(counter, 0)
+        row["launches_by_path"] = {p: c[counter] for p, c in counts.items()
+                                   if c.get(counter)}
     # a check kernel's code runs on the path inside another kernel
     for name, host in CHECK_ONLY.items():
         row = next(r for r in rows if r["name"] == name)

@@ -5,6 +5,7 @@ fold_points (csrc/msm.cu k_fold), and every other kernel by name and by
 caller (K1's eq table, K4's sumcheck rounds, ...).
 
     python3 k2_turns.py --root DIR  # the port under DIR (another checkout)
+    python3 k2_turns.py --root DIR --points  # K12 and K13 alone
 
 Proves with the port found under --root (another checkout, e.g. a parent
 commit unpacked by `git archive`, or this one) on one CUDA card: the NIZK
@@ -36,6 +37,13 @@ seconds in both forms, each proof's sha256, and K2's bullet rows alone
 (1 x 514 ... 1 x 34, 50 launches each: chip_smoke.py phase 2 times them
 too, but in one tree a call, and a comparison of two trees needs both
 on one card in one call).
+With --points it times only K12 (point_sum) and K13 (scale_points) at
+chip_smoke.py phase 2's shapes and scalar: a call on CUDA events (`ms`,
+the wrapper's host time included) and its launches' device time alone
+(`launch_ms`), the device time of a call's kernels queued back to back
+behind a spin of the card (`queued_ms`: the host's time is hidden), and
+each output's sha256 (equal across trees; chip_smoke holds them against
+the plain versions).
 Run two trees in turns (A, B, B, A) back to back on one card to compare
 them; the helpers come from this checkout's chip_smoke.py. Needs a CUDA
 card; imports nothing of JAX.
@@ -58,6 +66,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="checkout whose spartan_parallel_tpu_torch to run")
+    ap.add_argument("--points", action="store_true",
+                    help="time K12 and K13 alone")
     args = ap.parse_args()
     import torch
 
@@ -91,6 +101,11 @@ def main() -> int:
     kernels.build()
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
+    if args.points:
+        print(json.dumps({"card": card, "root": root,
+                          "kernel_source_sha256": h.hexdigest()[:16],
+                          **point_rows(cs, dev)}), flush=True)
+        return 0
     # a kernel library loads at its first launch (ctypes opens it and its
     # CUDA runtime starts, milliseconds inside that launch's events): one
     # small prove first, untraced, launches them all
@@ -168,6 +183,46 @@ def main() -> int:
             lambda: msm.msm_dev(pts[:n], sc), 50)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def point_rows(cs, dev) -> dict:
+    """K12 at chip_smoke.K12_SHAPES and K13 at 32 and 4096 points and
+    chip_smoke.k13_scalar(), on chip_smoke.py phase 2's points: ms,
+    launch_ms and the output's sha256 a row."""
+    import torch
+
+    from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
+    from spartan_parallel_tpu_torch.ops import curve
+
+    pts = MultiCommitGens(1024, b"chip_smoke").device_points(dev)
+    rows = {}
+
+    def row(name, fn, reps):
+        ms = cs.cuda_ms(fn, reps)
+        with cs.kernel_trace() as tr:
+            for _ in range(reps):
+                fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        torch.cuda._sleep(50_000_000)  # ~25 ms: the calls queue behind it
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        out = fn().cpu().numpy()
+        rows[name] = {"ms": ms, "launch_ms": sum(
+            t for _, t in tr.by_kernel().values()) / reps,
+            "queued_ms": start.elapsed_time(end) / reps,
+            "out_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16]}
+
+    for d, b in cs.K12_SHAPES:
+        parts = torch.stack([torch.roll(pts[:b], k, 0) for k in range(d)])
+        row(f"point_sum_{d}x{b}", lambda p=parts: curve.point_sum(p), 20)
+    k = cs.k13_scalar()
+    for n in (32, 4096):
+        p = torch.cat([torch.roll(pts, j, 0) for j in range(4)])[:n]
+        row(f"scale_points_{n}", lambda p=p.contiguous(): curve.scale_points(
+            p, k), 5)
+    return rows
 
 
 if __name__ == "__main__":

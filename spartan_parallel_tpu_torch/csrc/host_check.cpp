@@ -1,15 +1,16 @@
 // Host build of the per-element arithmetic in fq.cuh, eq.cuh, fp.cuh, fe.cuh,
-// curve.cuh and msm.cuh, of the lane-split point operations and the fold
-// in lanes.cuh, and of the device transcript and round tail in keccak.cuh,
-// ristretto.cuh and zk_round.cuh (g++, no CUDA), so the CPU tests can hold
-// the kernels' arithmetic against the plain PyTorch versions, Python
-// integers and the JAX package. Code that runs on several lanes runs here
-// through its host model: the same step functions, lane by lane, in the
-// kernel's order (lanes.cuh hq_*, keccak.cuh keccak_lanes_host and HostX,
-// ristretto.cuh comb_host, host_eq_evals for k_eq_evals, host_spmv_many
-// for k_spmv's work split). Each entry maps over n elements of 16-limb
-// int32 values (points: 4 x 16 limbs; states and encodings: one int32 per
-// byte).
+// curve.cuh and msm.cuh, of the lane-split point operations, the fold, the
+// point sum and k P in lanes.cuh, and of the device transcript and round
+// tail in keccak.cuh, ristretto.cuh and zk_round.cuh (g++, no CUDA), so the
+// CPU tests can hold the kernels' arithmetic against the plain PyTorch
+// versions, Python integers and the JAX package. Code that runs on several
+// lanes runs here through its host model: the same step functions, lane by
+// lane, in the kernel's order (lanes.cuh hq_*, keccak.cuh keccak_lanes_host
+// and HostX, ristretto.cuh comb_host, host_fold, host_point_sum and
+// host_scale for k_fold, k_point_sum and k_scale, host_eq_evals for
+// k_eq_evals, host_spmv_many for k_spmv's work split). Each entry maps over
+// n elements of 16-limb int32 values (points: 4 x 16 limbs; states and
+// encodings: one int32 per byte).
 #include <vector>
 
 #include "curve.cuh"
@@ -191,6 +192,70 @@ void host_fold(const int32_t* L, const int32_t* R, const int32_t* k,
       hq_double(acc);
       const int sel = fold_bits(kl, kr, bit);
       if (sel) hq_add_cached(acc, sel == 3 ? clr : sel == 1 ? cl : cr);
+    }
+    fe_point_store(out + 64 * i, acc);
+  }
+}
+
+// k_point_sum's host model: the kernel's levels a column at a time, those
+// of more than POINT_SUM_REGS points through scratch in its layout
+void host_point_sum(const int32_t* in, int32_t* out, long D, long B) {
+  std::vector<int32_t> scratch(64 * B * ((D + 1) / 2));
+  Fe id[4];
+  for (int c = 0; c < 4; ++c) id[c] = fe_coord_identity(c);
+  for (long b = 0; b < B; ++b) {
+    if (D == 1) {
+      for (int k = 0; k < 64; ++k) out[64 * b + k] = in[64 * b + k];
+      continue;
+    }
+    const int32_t* src = in;
+    const auto load = [&](Fe* P, long i) {
+      fe_point_load(P, src + 64 * (i * B + b));
+    };
+    long n = D;
+    while (n > POINT_SUM_REGS) {
+      const long h = (n + 1) / 2;
+      for (long i = 0; i < h; ++i) {
+        Fe p[4], q[4];
+        load(p, i);
+        if (i + h < n)
+          load(q, i + h);
+        else
+          for (int c = 0; c < 4; ++c) q[c] = id[c];
+        hq_add_pt(p, q);
+        fe_point_store(scratch.data() + 64 * (i * B + b), p);
+      }
+      src = scratch.data();
+      n = h;
+    }
+    const bool two = n > 2;
+    Fe s0[4], s1[4], q0[4], q1[4];
+    load(s0, 0);
+    load(q0, two ? 2 : 1);
+    for (int c = 0; c < 4; ++c) s1[c] = q1[c] = id[c];
+    if (two) load(s1, 1);
+    if (n == 4) load(q1, 3);
+    hq_add_pt(s0, q0);
+    hq_add_pt(s1, q1);
+    if (two) hq_add_pt(s0, s1);
+    fe_point_store(out + 64 * b, s0);
+  }
+}
+
+// k_scale's host model: k * P[i] by the kernel's steps, a point at a time
+void host_scale(const int32_t* P, const int32_t* k, int32_t* out, long n) {
+  uint32_t kk[8];
+  load16(k, kk);
+  const int len = scale_len(kk);
+  for (long i = 0; i < n; ++i) {
+    Fe add[4], acc[4];
+    fe_point_load(add, P + 64 * i);
+    for (int c = 0; c < 4; ++c) acc[c] = fe_coord_identity(c);
+    for (int bit = 0; bit < len; ++bit) {
+      if (scale_bit(kk, bit))
+        hq_add_dbl(acc, add);
+      else
+        hq_double(add);
     }
     fe_point_store(out + 64 * i, acc);
   }

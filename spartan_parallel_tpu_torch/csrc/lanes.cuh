@@ -131,6 +131,24 @@ __device__ __forceinline__ void q_add(Fe& own, int c, int base, GetQ Q) {
       ls_add_m(c, own, [&](int s) { return fe_shfl(own, base + s); }, Q);
   own = ls_out_add(c, [&](int s) { return fe_shfl(m, base + s); });
 }
+
+// own += q, an extended point the group holds as it holds own
+__device__ __forceinline__ void q_add_pt(Fe& own, const Fe& q, int c,
+                                         int base) {
+  q_add(own, c, base, [&](int s) { return fe_shfl(q, base + s); });
+}
+
+// acc += add, then add = 2 add, as one step: each lane forms the
+// addition's products and the doubling's side by side (two independent
+// chains in one instruction stream), then both finishing products.
+__device__ __forceinline__ void q_add_dbl(Fe& acc, Fe& add, int c, int base) {
+  const auto pa = [&](int s) { return fe_shfl(add, base + s); };
+  const Fe ma =
+      ls_add_m(c, acc, [&](int s) { return fe_shfl(acc, base + s); }, pa);
+  const Fe md = ls_dbl_m(c, add, pa);
+  acc = ls_out_add(c, [&](int s) { return fe_shfl(ma, base + s); });
+  add = ls_out_dbl(c, [&](int s) { return fe_shfl(md, base + s); });
+}
 #else
 // The host model: the same steps, lane by lane, on a group's array P[4].
 static void hq_double(Fe* P) {
@@ -162,6 +180,23 @@ static void hq_add(Fe* P, GetQ Q) {
   for (int c = 0; c < 4; ++c)
     P[c] = ls_out_add(c, [&](int s) { return m[s]; });
 }
+
+static void hq_add_pt(Fe* P, const Fe* Q) {
+  hq_add(P, [&](int s) { return Q[s]; });
+}
+
+static void hq_add_dbl(Fe* acc, Fe* add) {
+  Fe ma[4], md[4];
+  for (int c = 0; c < 4; ++c) {
+    ma[c] = ls_add_m(c, acc[c], [&](int s) { return acc[s]; },
+                     [&](int s) { return add[s]; });
+    md[c] = ls_dbl_m(c, add[c], [&](int s) { return add[s]; });
+  }
+  for (int c = 0; c < 4; ++c) {
+    acc[c] = ls_out_add(c, [&](int s) { return ma[s]; });
+    add[c] = ls_out_dbl(c, [&](int s) { return md[s]; });
+  }
+}
 #endif
 
 // --------------------------------------------------------------------------
@@ -188,4 +223,27 @@ HD Fe fold_pick(int sel, int c, const Fe& l, const Fe& r, const Fe& lr) {
   return fe_select(sel == 3, lr,
                    fe_select(sel == 1, l,
                              fe_select(sel == 2, r, fe_coord_identity(c))));
+}
+
+// The sum of D points by tree_sum's halving tree (point_sum): k_point_sum
+// (csrc/msm.cu) runs a column on a group, one q_add_pt an addition; levels
+// of up to POINT_SUM_REGS points stay in registers. host_check.cpp
+// host_point_sum runs the same steps on the host.
+#define POINT_SUM_REGS 4
+
+// --------------------------------------------------------------------------
+// k P by the JAX package's scan (scale_points): bit i from the bottom adds
+// the running add = 2^i P into acc where it is set, then doubles add, up to
+// k's top bit (scale_len). k_scale (csrc/msm.cu) runs a point on a group,
+// one q_add_dbl a set bit and one q_double a clear bit; host_check.cpp
+// host_scale runs the same steps on the host.
+// --------------------------------------------------------------------------
+HD bool scale_bit(const uint32_t* k, int bit) {
+  return (k[bit >> 5] >> (bit & 31)) & 1u;
+}
+
+HD int scale_len(const uint32_t* k) {  // k's bit length (k < 2^253)
+  int n = 253;
+  while (n > 0 && !scale_bit(k, n - 1)) --n;
+  return n;
 }

@@ -60,21 +60,32 @@
 //     (csrc/fe.cuh), and one-warp blocks of eight pairs spread 512 pairs
 //     over 64 SMs. Dependent products: 4 to form the cached addends, then
 //     2 a bit below the top and 2 a bit set in k_l | k_r.
-//   point_sum (K12): one thread per column b sums D points (D, B) -> (B)
-//     by the halving tree of ops/curve.py tree_sum (identity-padded, the
-//     same pairs in the same order, so the coordinates equal the plain
-//     version's). It adds up the per-rank MSM partials of the sharded MSM
-//     (parallel/msm_sharded.py); replaces the JAX package's ops/curve.py
-//     tree_reduce as parallel/msm_sharded.py msm_sharded_dev uses it.
-//   scale_points (K13): one thread per point computes k * P by the JAX
-//     package's 253-step scan (ops/curve.py _scale_scan / scale_points):
-//     bit i from the bottom adds the running 2^i P, then doubles it.
+//   point_sum (K12): the sum of D points a column, (D, B) -> (B), by the
+//     halving tree of ops/curve.py tree_sum (pairs (i, i + h), h = ceil(n
+//     / 2), the identity padding an odd level: the same pairs in the same
+//     order, so the coordinates equal the plain version's). It adds up the
+//     per-rank MSM partials of the sharded MSM (parallel/msm_sharded.py)
+//     and msm_dev's chunk sums; replaces the JAX package's ops/curve.py
+//     tree_reduce. A column on four lanes (one-warp blocks of eight
+//     columns, 128 blocks at B = 1024), lane c loading coordinate c of
+//     each point as four 16-byte loads; each addition is q_add_pt, three
+//     products deep (one thread's pt_add: 9). Levels of more than 4 points
+//     go through scratch, each lane reading back only the coordinate it
+//     wrote; the last two levels stay in registers, their first two
+//     additions side by side.
+//   scale_points (K13): k * P for every point by the JAX package's scan
+//     (ops/curve.py _scale_scan / scale_points): bit i from the bottom adds
+//     the running 2^i P, then doubles it. A point on four lanes, one-warp
+//     blocks of eight points; a set bit is one step q_add_dbl (the
+//     addition's products and the doubling's side by side: 3 products
+//     deep), a clear bit a q_double (2). k is shared, so every lane of a
+//     warp takes the same branch. About 2 * 253 + popcount(k) products
+//     deep, against one thread's 253 * 8 + popcount(k) * 9.
 //
 // K12 adds D - 1 points a column and reads D B points, so at the few ranks
-// of a mesh it is bound by bytes; its columns are independent threads.
-// K13 is bound by operations: 253 doublings and popcount(k) additions a
-// point, a dependent chain per thread, so it needs thousands of points to
-// fill the card.
+// of a mesh it is bound by bytes (in practice by its few dependent
+// products and the launch). K13 is bound by operations: 8 field products
+// a doubling up to k's top bit and 9 a set bit, a point.
 #include <cuda_runtime.h>
 
 #include "lanes.cuh"
@@ -402,50 +413,97 @@ __global__ void __launch_bounds__(32)
   if (i0 < n) fe_store16(out + 64 * i0 + 16 * c, acc);
 }
 
-// out[b] = sum_d in[d, b], the halving tree of tree_sum; scratch holds
-// (D + 1) / 2 points per column for the levels after the first.
-__global__ void k_point_sum(const int32_t* __restrict__ in,
-                            int32_t* __restrict__ scratch,
-                            int32_t* __restrict__ out, long long D,
-                            long long B) {
-  const long long b = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (b >= B) return;
+// coordinate c of a point (its 16 limbs at p, 16-byte aligned) as four
+// 16-byte loads through L2: scratch is read back in the kernel that wrote it
+__device__ __forceinline__ Fe fe_ld4(const int32_t* p) {
+  const int4* s = reinterpret_cast<const int4*>(p);
+  int32_t l[16];
+  for (int k = 0; k < 4; ++k) {
+    const int4 v = __ldcg(s + k);
+    l[4 * k] = v.x, l[4 * k + 1] = v.y, l[4 * k + 2] = v.z, l[4 * k + 3] = v.w;
+  }
+  return fe_load16(l);
+}
+
+__device__ __forceinline__ void fe_st4(int32_t* p, const Fe& a) {
+  int32_t l[16];
+  fe_store16(l, a);
+  int4* d = reinterpret_cast<int4*>(p);
+  for (int k = 0; k < 4; ++k)
+    d[k] = make_int4(l[4 * k], l[4 * k + 1], l[4 * k + 2], l[4 * k + 3]);
+}
+
+// out[b] = sum_d in[d, b], the halving tree of tree_sum. One warp a block,
+// eight columns a warp, a column's points on four lanes (lane c holds
+// coordinate c). Levels of more than POINT_SUM_REGS points write their
+// sums to scratch ((D + 1) / 2 points a column), in place from the
+// second; a lane reads and writes only its own coordinate there. Idle
+// groups repeat the last column and store nothing.
+__global__ void __launch_bounds__(32)
+    k_point_sum(const int32_t* __restrict__ in, int32_t* scratch,
+                int32_t* __restrict__ out, long long D, long long B) {
+  const int lane = threadIdx.x, c = lane & 3, base = lane & ~3;
+  const long long b0 = blockIdx.x * 8LL + (lane >> 2);
+  const long long b = b0 < B ? b0 : B - 1;
+  const bool mine = b0 < B;
+  const auto at = [&](const int32_t* src, long long i) {
+    return src + 64 * (i * B + b) + 16 * c;
+  };
+  if (D == 1) {  // the sum is the point, limb for limb
+    if (mine)
+      for (int k = 0; k < 4; ++k)
+        reinterpret_cast<int4*>(out + 64 * b + 16 * c)[k] =
+            __ldg(reinterpret_cast<const int4*>(at(in, 0)) + k);
+    return;
+  }
+  const Fe id = fe_coord_identity(c);
   const int32_t* src = in;
   long long n = D;
-  while (n > 1) {
-    const long long h = (n + 1) / 2;  // odd n: the identity pads the top
+#pragma unroll 1
+  while (n > POINT_SUM_REGS) {
+    const long long h = (n + 1) / 2;
+#pragma unroll 1
     for (long long i = 0; i < h; ++i) {
-      Point p, q;
-      pt_load(p, src + 64 * (i * B + b));
-      if (i + h < n)
-        pt_load(q, src + 64 * ((i + h) * B + b));
-      else
-        pt_identity(q);
-      pt_add(p, p, q);
-      pt_store(scratch + 64 * (i * B + b), p);
+      Fe p = fe_ld4(at(src, i));
+      q_add_pt(p, i + h < n ? fe_ld4(at(src, i + h)) : id, c, base);
+      if (mine) fe_st4(scratch + 64 * (i * B + b) + 16 * c, p);
     }
     src = scratch;
     n = h;
   }
-  for (int k = 0; k < 64; ++k) out[64 * b + k] = src[64 * b + k];
+  // n = 2, 3 or 4: one pair (n = 2) or two, then their sum
+  const bool two = n > 2;
+  Fe s0 = fe_ld4(at(src, 0)), s1 = two ? fe_ld4(at(src, 1)) : id;
+  const Fe q0 = fe_ld4(at(src, two ? 2 : 1)),
+           q1 = n == 4 ? fe_ld4(at(src, 3)) : id;
+  q_add_pt(s0, q0, c, base);
+  q_add_pt(s1, q1, c, base);
+  if (two) q_add_pt(s0, s1, c, base);
+  if (mine) fe_st4(out + 64 * b + 16 * c, s0);
 }
 
-// out[i] = k * P[i]; k as 16-bit limbs (canonical, < l).
-__global__ void k_scale(const int32_t* __restrict__ P,
-                        const int32_t* __restrict__ k,
-                        int32_t* __restrict__ out, long long n) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint32_t kk[8];
-  load16(k, kk);
-  Point add, acc;
-  pt_load(add, P + 64 * i);
-  pt_identity(acc);
-  for (int bit = 0; bit < 253; ++bit) {
-    if ((kk[bit >> 5] >> (bit & 31)) & 1u) pt_add(acc, acc, add);
-    pt_double(add, add);
+// out[i] = k * P[i]; k as 16-bit limbs (canonical, < l). One warp a block,
+// eight points a warp, a point on four lanes.
+__global__ void __launch_bounds__(32)
+    k_scale(const int32_t* __restrict__ P, const int32_t* __restrict__ k,
+            int32_t* __restrict__ out, long long n) {
+  const int lane = threadIdx.x, c = lane & 3, base = lane & ~3;
+  const long long i0 = blockIdx.x * 8LL + (lane >> 2);
+  const long long i = i0 < n ? i0 : n - 1;  // idle groups repeat a point
+  __shared__ uint32_t ks[8];  // k's words (indexed by the bit)
+  if (lane < 8)
+    ks[lane] = (uint32_t)k[2 * lane] | ((uint32_t)k[2 * lane + 1] << 16);
+  __syncwarp();
+  const int len = scale_len(ks);
+  Fe add = fe_ld4(P + 64 * i + 16 * c), acc = fe_coord_identity(c);
+#pragma unroll 1
+  for (int bit = 0; bit < len; ++bit) {
+    if (scale_bit(ks, bit))  // the same on every lane
+      q_add_dbl(acc, add, c, base);
+    else
+      q_double(add, c, base);
   }
-  pt_store(out + 64 * i, acc);
+  if (i0 < n) fe_st4(out + 64 * i0 + 16 * c, acc);
 }
 
 extern "C" {
@@ -496,20 +554,21 @@ int fold_points_launch(const int32_t* L, const int32_t* R, const int32_t* k,
   return (int)cudaGetLastError();
 }
 
-// in (D, B, 4, 16); scratch ((D + 1) / 2, B, 4, 16); out (B, 4, 16).
+// in (D, B, 4, 16), D >= 1; scratch ((D + 1) / 2, B, 4, 16), used where
+// D > POINT_SUM_REGS; out (B, 4, 16); all 16-byte aligned.
 int point_sum_launch(const int32_t* in, int32_t* scratch, int32_t* out,
                      long long D, long long B, void* stream) {
   if (B > 0)
-    k_point_sum<<<(unsigned)((B + 127) / 128), 128, 0,
-                  (cudaStream_t)stream>>>(in, scratch, out, D, B);
+    k_point_sum<<<(unsigned)((B + 7) / 8), 32, 0, (cudaStream_t)stream>>>(
+        in, scratch, out, D, B);
   return (int)cudaGetLastError();
 }
 
-// P (n, 4, 16); k (16,) canonical limbs; out (n, 4, 16).
+// P (n, 4, 16), 16-byte aligned; k (16,) canonical limbs; out (n, 4, 16).
 int scale_points_launch(const int32_t* P, const int32_t* k, int32_t* out,
                         long long n, void* stream) {
   if (n > 0)
-    k_scale<<<(unsigned)((n + 127) / 128), 128, 0, (cudaStream_t)stream>>>(
+    k_scale<<<(unsigned)((n + 7) / 8), 32, 0, (cudaStream_t)stream>>>(
         P, k, out, n);
   return (int)cudaGetLastError();
 }

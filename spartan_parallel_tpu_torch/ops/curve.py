@@ -162,6 +162,13 @@ def fold_points(pts_l: torch.Tensor, pts_r: torch.Tensor, k_l: int,
     return out
 
 
+def _aligned(pts: torch.Tensor) -> torch.Tensor:
+    """pts contiguous and 16-byte aligned: K12 and K13 load a coordinate
+    as four 16-byte vectors."""
+    pts = pts.contiguous()
+    return pts.clone() if pts.data_ptr() % 16 else pts
+
+
 def point_sum(parts: torch.Tensor) -> torch.Tensor:
     """(D, B, 4, 16) -> (B, 4, 16): the sum over the leading axis by
     tree_sum's halving tree (K12 on a CUDA tensor)."""
@@ -171,7 +178,7 @@ def point_sum(parts: torch.Tensor) -> torch.Tensor:
     if parts.device.type == "cpu":
         return tree_sum(parts, 0)
     d, b = parts.shape[:2]
-    parts = parts.contiguous()
+    parts = _aligned(parts)
     kernels.require_cuda(parts)
     scratch = torch.empty(((d + 1) // 2, b, 4, 16), dtype=torch.int32,
                           device=parts.device)
@@ -208,7 +215,7 @@ def scale_points(pts: torch.Tensor, k: int) -> torch.Tensor:
     kl = scalar_limbs([k], pts.device)[0]
     if pts.device.type == "cpu":
         return scale_points_plain(pts, kl)
-    pts = pts.contiguous()
+    pts = _aligned(pts)
     kernels.require_cuda(pts, kl)
     out = torch.empty_like(pts)
     kernels.launch("scale_points", "scale_points_launch", pts.data_ptr(),

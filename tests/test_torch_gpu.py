@@ -791,18 +791,30 @@ def test_device_rounds_match_host_loop(dev, monkeypatch, num_proofs):
 
 def test_point_sum_and_scale_kernels(dev):
     """K12 and K13 against their plain versions, limb for limb (both
-    follow the plain order of additions): point sums of 2, 3 and 5
-    partials, and k * P for k = 0, 1, l - 1 and a 252-bit k."""
+    follow the plain order of additions): point sums of 1 to 5 and of 9
+    partials over 37 columns (a block's idle groups; scratch above 4),
+    and k * P for k = 0, 1, l - 1 and a 252-bit k at 16 points, the
+    252-bit k also at 4096."""
     from spartan_parallel_tpu_torch.models.commitments import MultiCommitGens
 
     pts = MultiCommitGens(40, b"gpu_test").device_points(dev)[:40]
-    for d in (2, 3, 5):
-        parts = pts[:8 * d].reshape(d, 8, 4, 16)
+    for d in (1, 2, 3, 4, 5, 9):
+        parts = torch.stack([torch.roll(pts, k, 0)[:37] for k in range(d)])
         assert torch.equal(curve.point_sum(parts), curve.tree_sum(parts, 0))
     for k in (0, 1, L - 1, (1 << 252) - 12345):
         kl = curve.scalar_limbs([k], dev)[0]
         assert torch.equal(curve.scale_points(pts[:16], k),
                            curve.scale_points_plain(pts[:16], kl))
+    many = pts.repeat(103, 1, 1)[:4096]
+    assert torch.equal(curve.scale_points(many, k),
+                       curve.scale_points_plain(many, kl))
+    # a view off a 16-byte boundary: the wrappers copy it first
+    flat = torch.cat([pts.new_zeros(1), pts.flatten()])[1:]
+    off = flat.view(40, 4, 16)
+    assert off.data_ptr() % 16
+    assert torch.equal(curve.scale_points(off, k), curve.scale_points(pts, k))
+    assert torch.equal(curve.point_sum(off.view(5, 8, 4, 16)),
+                       curve.tree_sum(pts.view(5, 8, 4, 16), 0))
 
 
 def test_gloo_ranks_share_the_card(dev):

@@ -55,6 +55,8 @@ def lib(tmp_path_factory):
     lib.host_fe_words.argtypes = [vp, vp, vp, vp, n]
     lib.host_ls_point.argtypes = [vp, vp, vp, n, ctypes.c_int]
     lib.host_fold.argtypes = [vp, vp, vp, vp, n]
+    lib.host_point_sum.argtypes = [vp, vp, n, n]
+    lib.host_scale.argtypes = [vp, vp, vp, n]
     lib.host_pt_add.argtypes = [vp, vp, vp, n]
     lib.host_pt_double.argtypes = [vp, vp, n]
     lib.host_signed_digits.argtypes = [vp, vp, vp, n]
@@ -241,6 +243,42 @@ def test_fold_host_model(lib, ks):
     want = curve.fold_points_plain(torch.from_numpy(pl),
                                    torch.from_numpy(pr), torch.from_numpy(k))
     assert compressed(got) == compressed(want.numpy())
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8, 9])
+def test_point_sum_host_model(lib, d):
+    """k_point_sum's host model (csrc/host_check.cpp host_point_sum: the
+    kernel's levels on the lane-split additions, the identity padding an
+    odd level, scratch above 4 points) against tree_sum, limb for limb:
+    every D up to two levels through scratch (9)."""
+    B0 = RistrettoPoint.basepoint()
+    pts = curve.encode_points([B0.scalar_mul(x) for x in rand_mod(L, 6)]
+                              + [RistrettoPoint.identity()])
+    parts = np.ascontiguousarray(np.stack([np.roll(pts, k, 0)
+                                           for k in range(d)]))
+    got = np.zeros_like(pts)
+    lib.host_point_sum(ptr(parts), ptr(got), d, len(pts))
+    want = curve.tree_sum(torch.from_numpy(parts), 0).numpy()
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, L - 1, 1 << 252, None],
+                         ids=["0", "1", "2", "lm1", "2_252", "random"])
+def test_scale_host_model(lib, k):
+    """k_scale's host model (csrc/host_check.cpp host_scale: the JAX scan
+    from the bottom bit, a set bit one fused addition and doubling, a
+    clear bit a doubling) against scale_points_plain, limb for limb; 2^252
+    sets only the scan's last bit, the random k has 252 bits."""
+    k = k if k is not None else rand_mod(1 << 252, 6)[5] | 1 << 251
+    B0 = RistrettoPoint.basepoint()
+    pts = curve.encode_points([B0.scalar_mul(x) for x in rand_mod(L, 3)]
+                              + [RistrettoPoint.identity()])
+    kl = np.ascontiguousarray(curve.scalar_limbs([k], "cpu").numpy()[0])
+    got = np.zeros_like(pts)
+    lib.host_scale(ptr(pts), ptr(kl), ptr(got), len(pts))
+    want = curve.scale_points_plain(torch.from_numpy(pts),
+                                    torch.from_numpy(kl)).numpy()
+    assert np.array_equal(got, want)
 
 
 def test_point_add_and_double(lib):

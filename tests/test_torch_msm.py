@@ -63,6 +63,19 @@ def test_point_add_double_match_jax():
         compressed_jax(jcurve.point_double(enc_jax(p)))
 
 
+def test_aligned_points():
+    """K12 and K13 load a coordinate as four 16-byte vectors: their
+    wrappers copy a contiguous view that starts off a 16-byte boundary
+    and pass an aligned one as it is."""
+    flat = torch.arange(65 * 64, dtype=torch.int32)
+    off = flat[1:1 + 64 * 64].view(64, 4, 16)
+    got = curve._aligned(off)
+    assert off.data_ptr() % 16 and got.data_ptr() % 16 == 0
+    assert torch.equal(got, off)
+    pts = flat[64:].view(64, 4, 16)
+    assert curve._aligned(pts).data_ptr() == pts.data_ptr()
+
+
 def test_fold_points_matches_jax():
     pts = points(2)  # one pair of two random points
     kl, kr = rand_scalar(), rand_scalar()
