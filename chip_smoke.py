@@ -79,7 +79,19 @@ Phases, each printing one JSON line:
      proof must have run its expected number of rounds on split tables;
      each line gives the per-rank prove seconds, K2/K4/K5/K11/K12
      launches, split rounds, collectives and their seconds, and the
-     backend.
+     backend;
+ 10. the last modules: `bullet_verify_cells` (every bullet verify of
+     phases 3-8 kept the host branch: no K2 launch inside one); the
+     bullet verifier at n = 2^14 (DotProductProofLog proved on the card,
+     verified through the device branch, whose G_hat is K2 on the
+     generators' copy on the card with K12 summing msm_dev's chunks, and
+     through the host branch: equal G_hat, a tampered proof rejected, K2
+     launched, both verifies' ms and G_hat's alone), then the K2 row at
+     that shape (`msm_verify_16384`); `entry` (dryrun.entry() on the card
+     equal to the CPU's plain versions, K4 and K1 launched); `dryrun`
+     (dryrun.dryrun_multichip(2): the four stages, each a subprocess of
+     two gloo ranks on the card under its cap, the ranks agreeing and
+     launching each stage's kernels; a line a stage with its seconds).
 Phase 2 holds K2 (the MSM) at every shape its paths launch: 1024 x 1024,
 the NIZK 2^20's witness commit (1024 rows x 1025 points), the bullet
 rounds' single rows of 514 ... 34 points (also at scalars of all-0x80
@@ -142,8 +154,9 @@ bytes must be equal; both prove times are printed. Phase 8 proves with
 device rounds again after the host loop (the first prove of a call is
 slower), then once more in each form with each stage's SAT and eval
 proofs timed.
-Each of phases 4-8 sets the launch counts to 0 before each run and reads
-them after (phase 9's ranks before and after each job); every kernel row
+Each of phases 4-8 and 10 sets the launch counts to 0 before each run
+and reads them after (phase 9's and the dry run's ranks before and after
+each job); every kernel row
 but the NO_PATH ones must have been launched on its path (`launches`;
 `launches_by_path`: its counter's launches on every path that made
 some). Then the kernel table as one JSON line, the card line, and last
@@ -324,14 +337,16 @@ def edge_scalars(b: int, n: int, dev):
 
 
 def record_msm(record, name, pts, scal, path, extra=None,
-               replaces="spartan_parallel_tpu/ops/msm.py:189"):
+               replaces="spartan_parallel_tpu/ops/msm.py:189", edge=True):
     """One K2 row: msm_dev against msm_plain on (pts, scal), exact; at
-    rows whose windows split into chunks also on edge_scalars."""
+    rows whose windows split into chunks also on edge_scalars, unless
+    `edge` is false. The plain version takes seconds at every K2 shape:
+    its time is that of the compared call (plain_once)."""
     from spartan_parallel_tpu_torch.ops import msm
 
     b, n = scal.shape[0], pts.shape[0]
     single = msm.chunking(b)[0] > 1
-    if single:
+    if single and edge:
         e = edge_scalars(b, n, pts.device)
         err = point_err(msm.msm_dev(pts, e), msm.msm_plain(pts, e))
         if err:
@@ -342,7 +357,7 @@ def record_msm(record, name, pts, scal, path, extra=None,
     record(name, "msm.cu", replaces,
            lambda: msm.msm_dev(pts, scal), lambda: msm.msm_plain(pts, scal),
            point_err, nbytes, imads, reps_k=20 if single else 5,
-           counter="msm_batched", path=path, plain_once=not single,
+           counter="msm_batched", path=path, plain_once=True,
            extra={"rows": b, "points": n, **bounds, **(extra or {})})
 
 
@@ -2756,6 +2771,186 @@ def phase9(dev, card, refs, log_cons: int) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the bullet verifier's G_hat on K2, the entry step, the dry run
+# (spartan_parallel_tpu_torch/dryrun.py)
+# --------------------------------------------------------------------------
+BULLET_N = 1 << 14  # above host_msm_max on the card (8192): G_hat on K2
+# the kernels (P9_KERNELS' keys) each dry-run stage must launch on every
+# rank, at the stages' own shapes
+DRYRUN_NEEDS = {"1_sharded_round": ("K4",), "2_nizk": ("K4", "K11"),
+                "4_dp_r1cs": ("K5", "K11"), "3_snark": ("K11",)}
+
+
+def log_bullet_verifies(log: list) -> None:
+    """Record every bullet verifier call (models/sigma.py
+    BulletReductionProof.verify) from here on: its n, its G_hat and the
+    K2 launches made inside it."""
+    from spartan_parallel_tpu_torch.models import sigma
+    from spartan_parallel_tpu_torch.ops import kernels
+
+    verify = sigma.BulletReductionProof.verify
+
+    def logged(self, n, *args, **kw):
+        k0 = kernels.launches.get("msm_batched", 0)
+        out = verify(self, n, *args, **kw)
+        log.append({"n": n, "g_hat": out[0].compress(),
+                    "k2": kernels.launches.get("msm_batched", 0) - k0})
+        return out
+
+    sigma.BulletReductionProof.verify = logged
+
+
+def bullet_verify_run(dev, card, record, log: list) -> dict:
+    """The verifies of phases 3-8 (`log`) launched no K2: each n is at
+    most the card's threshold. Then DotProductProofLog at n = 2^14,
+    proved on the card and verified through the device branch (K2 on the
+    generators' copy on the card; K12 sums msm_dev's two chunks) and the
+    host branch: equal G_hat, a tampered proof rejected. Returns the
+    device branch's launch counts."""
+    import numpy as np
+    import torch
+
+    from spartan_parallel_tpu_torch.core.consts import L
+    from spartan_parallel_tpu_torch.core.edwards import (
+        RistrettoPoint,
+        multiscalar_mul,
+    )
+    from spartan_parallel_tpu_torch.core.field import Scalar
+    from spartan_parallel_tpu_torch.models import sigma
+    from spartan_parallel_tpu_torch.ops import kernels, msm
+    from spartan_parallel_tpu_torch.ops import limbs as lb
+    from spartan_parallel_tpu_torch.utils.errors import ProofVerifyError
+    from spartan_parallel_tpu_torch.utils.random_tape import RandomTape
+    from spartan_parallel_tpu_torch.utils.transcript import Transcript
+
+    cells = {"verifies": len(log), "largest_n": max(e["n"] for e in log),
+             "k2_launches": sum(e["k2"] for e in log)}
+    emit({"phase": "bullet_verify_cells", **cells})
+    if cells["k2_launches"]:
+        raise AssertionError("a verify of phases 3-8 took K2")
+    n = BULLET_N
+    rng = np.random.default_rng(14)
+
+    def draw():
+        return Scalar(int.from_bytes(rng.bytes(40), "little") % L)
+
+    x = [draw() for _ in range(n)]
+    a = [draw() for _ in range(n)]
+    y = Scalar(sum(int(u) * int(v) for u, v in zip(x, a)))
+    t0 = time.perf_counter()
+    gens = sigma.DotProductProofGens(n, b"chip_smoke_bullet")
+    G_dev = gens.gens_n.device_points(dev)[:n]
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proof, Cx, Cy = sigma.DotProductProofLog.prove(
+        gens, Transcript(b"bullet_verify"),
+        RandomTape(b"proof", seed=b"\x0e" * 32), x, draw(), a, y, draw(),
+        device=dev)
+    prove_s = time.perf_counter() - t0
+
+    def verify(device, p=proof):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p.verify(n, gens, Transcript(b"bullet_verify"), a, Cx, Cy, device)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, log[-1]
+
+    kernels.reset_counts()
+    dev_ms, on_dev = verify(dev)
+    counts = dict(kernels.launches)
+    host_ms, on_host = verify(None)
+    brp = proof.bullet_reduction_proof
+    bad = sigma.DotProductProofLog(
+        sigma.BulletReductionProof(
+            [RistrettoPoint.basepoint().compress()] + brp.L_vec[1:],
+            brp.R_vec), proof.delta, proof.beta, proof.z1, proof.z2)
+    try:
+        verify(dev, bad)
+        rejected = False
+    except ProofVerifyError:
+        rejected = True
+    # G_hat alone at this shape: K2 (msm_single: the launches and the
+    # decode to the host) against the host's multiscalar_mul
+    s = [draw() for _ in range(n)]
+    s_dev = lb.to_device(lb.ints_to_limbs([int(v) for v in s]), dev)
+    k2_ms = wall_ms(lambda: msm.msm_single(G_dev, s_dev))
+    host_g_ms = wall_ms(lambda: multiscalar_mul(s, gens.gens_n.G))
+    emit({"phase": "bullet_verify", "n": n, "card": card,
+          "gens_setup_s": setup_s, "prove_s": prove_s,
+          "verify_ms_device_branch": dev_ms, "verify_ms_host_branch": host_ms,
+          "g_hat_ms_k2": k2_ms, "g_hat_ms_host": host_g_ms,
+          "k2_launches": on_dev["k2"], "launches": counts,
+          "g_hat_identical": on_dev["g_hat"] == on_host["g_hat"],
+          "host_branch_k2_launches": on_host["k2"],
+          "tamper_rejected": rejected})
+    if not on_dev["k2"] or on_host["k2"] or not counts.get("point_sum"):
+        raise AssertionError("the verify at 2^14 did not take K2 (and K12) "
+                             "on the device branch alone")
+    if on_dev["g_hat"] != on_host["g_hat"] or not rejected:
+        raise AssertionError("the device branch's G_hat differs, or a "
+                             "tampered proof was accepted")
+    # the bullet rows of phase 2 hold the split windows at edge_scalars;
+    # here msm_plain takes ~23 s a call
+    record_msm(record, f"msm_verify_{n}", G_dev, s_dev[None],
+               "bullet_verify", edge=False, extra={
+                   "caller": "spartan_parallel_tpu/models/sigma.py:338",
+                   "shape_from": "the bullet verifier's G_hat at 2^14"})
+    return counts
+
+
+def entry_run(dev, card) -> dict:
+    """dryrun.entry() on the card against the CPU's plain versions,
+    exact; returns the card's launch counts."""
+    import torch
+
+    from spartan_parallel_tpu_torch import dryrun
+    from spartan_parallel_tpu_torch.ops import kernels
+
+    kernels.reset_counts()
+    fn, args = dryrun.entry(dev)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    fn, args = dryrun.entry("cpu")
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, fn(*args)))
+    emit({"phase": "entry", "shape": list(dryrun.ENTRY_SHAPE), "card": card,
+          "identical_to_cpu": same, "launches": counts})
+    if not same or not counts.get("sc_p1_round") or \
+            not counts.get("fq_bind"):
+        raise AssertionError("entry(): the card differs from the CPU or "
+                             "did not launch K4 and K1")
+    return counts
+
+
+def dryrun_run(card) -> dict:
+    """dryrun_multichip(2) on the card: the four stages, each a
+    subprocess of two gloo ranks under its cap; every stage's ranks must
+    agree and launch the stage's kernels. Returns rank 0's launch counts
+    summed over the stages."""
+    from spartan_parallel_tpu_torch import dryrun
+
+    t0 = time.perf_counter()
+    recs = dryrun.dryrun_multichip(2)
+    total = {}
+    for rec in recs:
+        kern = [{kk: sum(r.get(c, 0) for c in cs)
+                 for kk, cs in P9_KERNELS.items()} for r in rec["launches"]]
+        emit({"phase": "dryrun", "card": card, **rec,
+              "kernel_launches_per_rank": kern})
+        missing = [kk for kk in DRYRUN_NEEDS[rec["dryrun_stage"]]
+                   if not all(k[kk] for k in kern)]
+        if missing or not rec["ranks_agree"]:
+            raise AssertionError(f"dryrun {rec['dryrun_stage']}: ranks "
+                                 f"disagree or {missing} not launched")
+        for k, v in rec["launches"][0].items():
+            total[k] = total.get(k, 0) + v
+    emit({"phase": "dryrun_total", "card": card, "world": 2,
+          "stages": [r["dryrun_stage"] for r in recs],
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--log-cons", type=int, default=20,
@@ -2837,6 +3032,8 @@ def main() -> int:
 
     no_sync = {"sumchecks": 0, "rounds": 0}
     strict_round_loops(torch, no_sync)
+    bullet_log = []
+    log_bullet_verifies(bullet_log)
 
     def tails(proof):
         """(ZK rounds of the card's proof, K11 launches since the reset)."""
@@ -3165,6 +3362,10 @@ def main() -> int:
         raise AssertionError("K4's data-parallel rounds not launched")
 
     counts["multi_device"] = phase9(dev, card, refs, args.log_cons)
+    counts["bullet_verify"] = bullet_verify_run(dev, card, record,
+                                                bullet_log)
+    counts["entry"] = entry_run(dev, card)
+    counts["dryrun"] = dryrun_run(card)
 
     emit({"phase": "no_host_sync", "check": "torch.cuda.set_sync_debug_mode"
           "('error') around every device-round loop on the card, phases "

@@ -11,8 +11,8 @@ kernels written by hand (csrc/: K1 scalar field, K2 MSM and point fold,
 K3 sparse R1CS products, K4 sumcheck rounds, K5 q-size-classed phase-1
 rounds, K6 SPARK's grand-product circuits, K7 the powers of a scalar for
 ShiftProofs, K8-K11 the device round: Keccak-f[1600], ristretto
-compression, comb commitments and the round tail with its transcript).
-It imports torch, numpy and the standard library only; the JAX package
+compression, comb commitments and the round tail with its transcript),
+and the entry step and multi-device dry run (dryrun.py). It imports torch, numpy and the standard library only; the JAX package
 is its reference in the tests, never a dependency.
 
 Entry points run on the card unless the caller passes device="cpu", where

@@ -355,7 +355,8 @@ class PolyEvalProof:
         transcript.append_protocol_name(PolyEvalProof.protocol_name())
         L, R = EqPolynomial(list(r)).compute_factored_evals(device)
         C_LZ = multiscalar_mul(L, comm.decompress()).compress()
-        self.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zr)
+        self.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zr,
+                          device)
 
     def verify_plain(self, gens: PolyCommitmentGens, transcript, r,
                      Zr: Scalar, comm: PolyCommitment, device) -> None:
@@ -426,7 +427,8 @@ class PolyEvalProof:
         for proof, L, R, Zc in zip(proof_list, L_list, R_list, Zc_list):
             C_Zc = commit_scalar(Zc, _ZERO, gens.gens.gens_1).compress()
             C_LZ = multiscalar_mul(L, pts).compress()
-            proof.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zc)
+            proof.proof.verify(len(R), gens.gens, transcript, R, C_LZ, C_Zc,
+                               device)
 
     # --- batched instances, each at its own point (dense_mlpoly.rs:689) --
     @staticmethod
@@ -511,7 +513,7 @@ class PolyEvalProof:
         for proof, LZ, Zc, R in zip(proof_list, LZ_list, Zc_list, R_list):
             C_Zc = commit_scalar(Zc, _ZERO, gens.gens.gens_1).compress()
             proof.proof.verify(len(R), gens.gens, transcript, R,
-                               LZ.compress(), C_Zc)
+                               LZ.compress(), C_Zc, device)
 
     # --- univariate batched openings at one scalar (dense_mlpoly.rs:1046) -
     # A table of 2^num_vars coefficients is a (2^left, 2^right) matrix:
@@ -565,8 +567,11 @@ class PolyEvalProof:
         return PolyEvalProof(proof), C_Zr_prime
 
     def verify_uni_batched_instances(self, gens, transcript, r: Scalar,
-                                     C_Zr_list, comm_list, poly_size):
-        """C_Zr_list: list of RistrettoPoint."""
+                                     C_Zr_list, comm_list, poly_size,
+                                     device=None):
+        """C_Zr_list: list of RistrettoPoint; the opening's G_hat may run
+        on `device` (sigma.BulletReductionProof.verify; None: the
+        host)."""
         transcript.append_protocol_name(PolyEvalProof.protocol_name())
         _, right = EqPolynomial.compute_factored_lens(
             log2(next_pow2(max(poly_size))))
@@ -588,7 +593,7 @@ class PolyEvalProof:
             c = c * c_base
 
         self.proof.verify(len(R), gens.gens, transcript, R,
-                          C_LZ_comb.compress(), C_Zr_comb.compress())
+                          C_LZ_comb.compress(), C_Zr_comb.compress(), device)
 
     # --- batched opening: many instances, (rq, ry) trimmed per size ------
     # One dot-product proof per distinct (num_proofs, num_inputs) pair;
@@ -683,5 +688,4 @@ class PolyEvalProof:
         for i in range(len(LZ_list)):
             proof_list[i].proof.verify(
                 len(R_list[i]), gens.gens, transcript, R_list[i],
-                LZ_list[i].compress(), Zc_list[i].compress(),
-            )
+                LZ_list[i].compress(), Zc_list[i].compress(), device)

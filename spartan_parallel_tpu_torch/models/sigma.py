@@ -7,7 +7,8 @@ DotProductProof:292, DotProductProofLog:421; src/nizk/bullet.rs:16).
 Host/device split: the sigma protocols themselves are constant-size
 (host); on the card the bullet reduction's per-round L/R MSMs and generator
 folds run as K2 kernels (ops/msm.py, ops/curve.fold_points) until the
-vectors are short enough for the host."""
+vectors are short enough for the host; the verifier's G_hat runs as K2
+above the commit threshold (commitments.host_msm_max)."""
 
 from __future__ import annotations
 
@@ -20,7 +21,12 @@ from ..core.field import Scalar, batch_invert
 from ..ops import curve, msm
 from ..ops import limbs as lb
 from ..utils.errors import ProofVerifyError
-from .commitments import MultiCommitGens, commit, commit_scalar
+from .commitments import (
+    MultiCommitGens,
+    commit,
+    commit_scalar,
+    host_msm_max,
+)
 
 
 def _dot(a, b) -> Scalar:
@@ -328,11 +334,22 @@ class BulletReductionProof:
             s.append(s[i - k] * u_lg_i_sq)
         return chal_sq, chal_inv_sq, s
 
-    def verify(self, n: int, a_vec, transcript, Gamma: RistrettoPoint, G_list):
+    def verify(self, n: int, a_vec, transcript, Gamma: RistrettoPoint,
+               gens_n: MultiCommitGens, device=None):
+        """G_hat = <s, gens_n.G[:n]>. With a `device` and n above
+        max(32, host_msm_max(device)) it is K2 (ops/msm.py msm_single) on
+        the generators' copy on that device, as the JAX package's device
+        MSM above its threshold; otherwise the host multiscalar_mul. The
+        result is the same point either way."""
         u_sq, u_inv_sq, s = self.verification_scalars(n, transcript)
         Ls = [RistrettoPoint.decompress(p) for p in self.L_vec]
         Rs = [RistrettoPoint.decompress(p) for p in self.R_vec]
-        G_hat = multiscalar_mul(s, list(G_list))
+        if device is not None and \
+                n > max(32, host_msm_max(torch.device(device))):
+            G_dev = gens_n.device_points(device)[:n]
+            G_hat = msm.msm_single(G_dev, curve.scalar_limbs(s, device))
+        else:
+            G_hat = multiscalar_mul(s, gens_n.G[:n])
         a_hat = _dot(a_vec, s)
         Gamma_hat = multiscalar_mul(
             u_sq + u_inv_sq + [Scalar(1)], Ls + Rs + [Gamma]
@@ -408,7 +425,9 @@ class DotProductProofLog:
         return DotProductProofLog(brp, delta, beta, z1, z2), Cx, Cy
 
     def verify(self, n, gens: DotProductProofGens, transcript, a_vec,
-               Cx: bytes, Cy: bytes) -> None:
+               Cx: bytes, Cy: bytes, device=None) -> None:
+        """device: where the bullet reduction's G_hat may run (see
+        BulletReductionProof.verify); None keeps it on the host."""
         assert gens.n >= n and len(a_vec) == n
         transcript.append_protocol_name(b"dot product proof (log)")
         transcript.append_point(b"Cx", Cx)
@@ -418,8 +437,7 @@ class DotProductProofLog:
         gens_1_scaled = gens.gens_1.scale(r)
         Gamma = RistrettoPoint.decompress(Cx) + RistrettoPoint.decompress(Cy) * r
         g_hat, Gamma_hat, a_hat = self.bullet_reduction_proof.verify(
-            n, a_vec, transcript, Gamma, gens.gens_n.G[:n]
-        )
+            n, a_vec, transcript, Gamma, gens.gens_n, device)
         transcript.append_point(b"delta", self.delta)
         transcript.append_point(b"beta", self.beta)
         c = transcript.challenge_scalar(b"c")

@@ -213,7 +213,8 @@ class ShiftProofs:
         return ShiftProofs(proof, C_orig_evals, C_shifted_evals, openings)
 
     def verify(self, orig_comms, shifted_comms, poly_size_list,
-               shift_size_list, header_len_list, vars_gens, transcript):
+               shift_size_list, header_len_list, vars_gens, transcript,
+               device=None):
         """The homomorphic shift relation
 
             orig(c) == shifted(c) * c^shift_size + sum_i header_i * c^i
@@ -221,7 +222,8 @@ class ShiftProofs:
         is checked on the commitments (all carry zero blinds), as in the
         JAX package; the reference leaves it commented out (lib.rs:480-505,
         PARITY.md D5), and SPARTAN_LAX_SHIFT=1 restores that unchecked
-        behaviour. The check touches no transcript bytes."""
+        behaviour. The check touches no transcript bytes. The opening's
+        G_hat may run on `device` (None: the host)."""
         for p, header_len in enumerate(header_len_list):
             for i in range(header_len):
                 transcript.append_point(b"shift_header_entry",
@@ -247,7 +249,7 @@ class ShiftProofs:
         self.proof.verify_uni_batched_instances(
             vars_gens.gens_pc, transcript, c, C_orig + C_shift,
             list(orig_comms) + list(shifted_comms),
-            list(poly_size_list) + list(poly_size_list))
+            list(poly_size_list) + list(poly_size_list), device)
 
 
 # --------------------------------------------------------------------------
@@ -1544,7 +1546,7 @@ class SNARK:
             header_len_list.append(6)
         self.shift_proof.verify(
             orig_comms, shifted_comms, poly_size_list, shift_size_list,
-            header_len_list, vars_gens, transcript)
+            header_len_list, vars_gens, transcript, dev)
 
         # IO_PROOFS
         self.io_proof.verify(
