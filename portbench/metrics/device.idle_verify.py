@@ -1,0 +1,10 @@
+"""device.idle_verify: per cent of the window's verify spans in which no
+kernel, copy or fill ran on the card (torch.profiler's device trace)."""
+
+from portbench.tracer import idle_share
+
+
+def read(ctx):
+    if not ctx["trace"]["device"]:
+        return None
+    return idle_share(ctx["trace"]["device"], ctx["spans"].get("verify", []))
